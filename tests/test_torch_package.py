@@ -1,0 +1,87 @@
+"""Package-level properties of the PyTorch port: jax-free imports, a bridge
+that fails loudly, and kernel wrappers that never fall back."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from open_genie_tpu_torch.bridge import load_flax_params  # noqa: E402
+from open_genie_tpu_torch.modules.video import CausalConv3d  # noqa: E402
+from open_genie_tpu_torch.ops.kernels.flash_attention import flash_attention  # noqa: E402
+from open_genie_tpu_torch.ops.kernels.lfq_head import lfq_head  # noqa: E402
+
+torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_without_jax():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'flax', 'open_genie_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import open_genie_tpu_torch.models.genie\n"
+        "import open_genie_tpu_torch.models.configs\n"
+        "import open_genie_tpu_torch.bridge\n"
+        "import open_genie_tpu_torch.ops.kernels.flash_attention\n"
+        "import open_genie_tpu_torch.ops.kernels.lfq_head\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def _conv_params():
+    return {"conv3d": {"kernel": np.zeros((3, 3, 3, 2, 4), np.float32),
+                       "bias": np.zeros((4,), np.float32)}}
+
+
+def test_bridge_loads_and_fails_loudly():
+    conv = CausalConv3d(2, 4)
+    params = _conv_params()
+    params["conv3d"]["kernel"][0, 1, 2, 1, 3] = 1.0
+    assert load_flax_params(conv, params) == []
+    assert conv.conv3d.weight[3, 1, 0, 1, 2] == 1.0  # (kt,kh,kw,I,O)->(O,I,kt,kh,kw)
+
+    missing = _conv_params()
+    del missing["conv3d"]["bias"]
+    with pytest.raises(KeyError, match="missing"):
+        load_flax_params(conv, missing)
+    unused = _conv_params()
+    unused["extra"] = {"kernel": np.zeros((2, 2), np.float32)}
+    with pytest.raises(KeyError, match="unused"):
+        load_flax_params(conv, unused)
+    partial_qkv = {"to_q": {"kernel": np.zeros((2, 2), np.float32)}}
+    with pytest.raises(KeyError, match="to_q, to_k and to_v"):
+        load_flax_params(conv, partial_qkv)
+
+
+def test_wrappers_raise_instead_of_falling_back():
+    """A tensor on a device without the kernel raises; so does any input
+    the kernel does not take, on every device."""
+    q = torch.empty(2, 8, 16, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        flash_attention(q, q, q, 0.25)
+    x, w, b = (torch.empty(*s, device="meta") for s in ((8, 4), (4, 3), (3,)))
+    with pytest.raises(ValueError, match="no kernel for device"):
+        lfq_head(x, w, b)
+
+    bad = [
+        (torch.zeros(2, 8, 8), "head dim"),
+        (torch.zeros(2, 8, 16, dtype=torch.float16), "float32 or bfloat16"),
+        (torch.zeros(2, 16, 8).transpose(1, 2), "contiguous"),
+    ]
+    for t, msg in bad:
+        with pytest.raises(ValueError, match=msg):
+            flash_attention(t, t, t, 0.25)
+    with pytest.raises(ValueError, match="31 bits"):
+        lfq_head(torch.zeros(8, 4), torch.zeros(4, 32), torch.zeros(32))
+    with pytest.raises(ValueError, match="contiguous"):
+        lfq_head(torch.zeros(4, 8).t(), torch.zeros(4, 3), torch.zeros(3))
