@@ -1,1 +1,1 @@
-"""Models of the port: tokenizer, dynamics, Genie, and their configs."""
+"""Models of the port: tokenizer, latent action, dynamics, Genie, and their configs."""

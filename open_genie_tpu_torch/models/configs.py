@@ -88,3 +88,46 @@ def genie_rollout_config() -> dict:
             embed_dim=512,
         ),
     )
+
+
+def genie_train_config() -> dict:
+    """The Genie joint-training model of `configs/genie.yaml` (its `model:`
+    block, pinned equal by the tests): a frozen 64-wide tokenizer
+    compressing 64x64 frames 4x in space to a 16x16 grid of 10-bit tokens
+    (4 + 4 ST blocks of 4 heads x 16, a 1x1 head, so kernel K2 fuses it),
+    the stock latent-action VQ-VAE (256 wide, 4 heads x 16, 8-bit action
+    codes, 4096-token spatial attention at 64x64), and a 6-block, 512-wide
+    dynamics trunk of 8 heads x 64."""
+    st = ("space-time_attn", {"n_rep": 4, "n_head": 4, "d_head": 16, "d_inp": 64, "d_out": 64})
+    return dict(
+        tokenizer=dict(
+            enc_desc=(
+                ("spacetime_downsample", {
+                    "in_channels": 3, "kernel_size": 3, "out_channels": 64,
+                    "time_factor": 1, "space_factor": 4,
+                }),
+                st,
+                ("causal-conv3d", {"in_channels": 64, "out_channels": 10, "kernel_size": 1}),
+            ),
+            dec_desc=(
+                ("causal-conv3d", {"in_channels": 10, "out_channels": 64, "kernel_size": 3}),
+                st,
+                ("depth2spacetime_upsample", {
+                    "in_channels": 64, "kernel_size": 3, "out_channels": 3,
+                    "time_factor": 1, "space_factor": 4,
+                }),
+            ),
+            d_codebook=10,
+        ),
+        latent_action=dict(
+            enc_desc=LATENT_ACT_ENC,
+            dec_desc=LATENT_ACT_DEC,
+            d_codebook=8,
+            n_embd=256,
+            inp_shape=(64, 64),
+        ),
+        dynamics=dict(
+            desc=(("space-time_attn", {"n_rep": 6, "n_embd": 512, "n_head": 8, "d_head": 64}),),
+            embed_dim=512,
+        ),
+    )

@@ -1,8 +1,10 @@
-"""MaskGIT DynamicsModel, inference part (twin of `open_genie_tpu.models.dynamics`)."""
+"""MaskGIT DynamicsModel (twin of `open_genie_tpu.models.dynamics`): the
+full forward and its Bernoulli-masked training loss, and the KV-cached
+frame decode of the rollout. `generate` is not ported yet."""
 from __future__ import annotations
 
 from math import pi
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -117,6 +119,38 @@ class DynamicsModel(nn.Module):
         for layer in self.layers:
             x = layer(x)
         return self.head(x)
+
+    def compute_loss(
+        self,
+        tokens: torch.Tensor,
+        act_id: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+        fill: int = 0,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Bernoulli-masked token cross-entropy over `(B, T, H, W)` tokens.
+
+        `mask` (bool, True = masked) is given, or drawn from `generator`:
+        a rate ~ U(0.5, 1), then each position masked with that rate.
+        Masked positions are replaced by `fill`; the loss is the mean
+        cross-entropy over the masked positions only, against the original
+        tokens. Returns `(loss, {"masked_frac", "masked_acc"})`.
+        """
+        if mask is None:
+            if generator is None:
+                raise ValueError("pass a torch.Generator or a mask tensor")
+            dev = tokens.device
+            rate = 0.5 + 0.5 * torch.rand((), generator=generator, device=dev)
+            mask = torch.rand(tokens.shape, generator=generator, device=dev) < rate
+        inp = tokens.masked_fill(mask, fill)
+        logits = self(inp, act_id)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        tok_logp = torch.gather(logp, -1, tokens.long()[..., None])[..., 0]
+        masked = mask.float()
+        denom = masked.sum().clamp_min(1.0)
+        loss = -(tok_logp * masked).sum() / denom
+        acc = ((logits.argmax(-1) == tokens).float() * masked).sum() / denom
+        return loss, {"masked_frac": masked.mean(), "masked_acc": acc}
 
     def init_cache(self, batch: int, h: int, w: int, t_max: int,
                    dtype: Optional[torch.dtype] = None, device=None) -> List[dict]:

@@ -1,25 +1,28 @@
-"""Genie: action-conditioned world-model rollout (twin of `open_genie_tpu.models.genie`).
+"""Genie: action-conditioned world model (twin of `open_genie_tpu.models.genie`).
 
-Inference only: the prompt is tokenized, each new frame is generated by
-KV-cached MaskGIT refinement of the dynamics model, and the token video is
-decoded to pixels. The latent-action model is training-only and not ported
-yet; its config is read only for the action vocabulary.
+Training (`compute_loss`): the frozen tokenizer turns the video into a
+token grid, the latent-action VQ-VAE turns it into per-frame action ids
+and its own loss, and the dynamics model's masked-token cross-entropy on
+those tokens and actions is added to it.
+
+Rollout (`forward`): the prompt is tokenized, each new frame is generated
+by KV-cached MaskGIT refinement of the dynamics model, and the token video
+is decoded to pixels.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
+from open_genie_tpu_torch.models.action import LatentAction
 from open_genie_tpu_torch.models.dynamics import (
     DynamicsModel,
     get_schedule,
     maskgit_commit,
 )
 from open_genie_tpu_torch.models.tokenizer import VideoTokenizer
-
-_LATENT_ACTION_D_CODEBOOK = 8  # the JAX LatentAction default
 
 
 class Genie(nn.Module):
@@ -30,13 +33,47 @@ class Genie(nn.Module):
                  dynamics: Dict[str, Any]):
         super().__init__()
         self.tokenizer = VideoTokenizer(**tokenizer)
+        self.latent_action = LatentAction(**latent_action)
         dyn = dict(dynamics)
         dyn.setdefault("tok_vocab", 2 ** self.tokenizer.d_codebook)
-        dyn.setdefault(
-            "act_vocab",
-            2 ** latent_action.get("d_codebook", _LATENT_ACTION_D_CODEBOOK),
-        )
+        dyn.setdefault("act_vocab", 2 ** self.latent_action.d_codebook)
         self.dynamics = DynamicsModel(**dyn)
+
+    def compute_loss(
+        self,
+        video: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Joint latent-action + dynamics loss on `(B, T, H, W, C)` video.
+
+        The tokenizer runs frozen, with no graph. The latent-action model
+        trains its LFQ (and applies dropout) when this module is in
+        training mode. The dynamics' Bernoulli mask is `mask` or drawn from
+        `generator` (see `DynamicsModel.compute_loss`).
+        """
+        _, tok_idxs = self.tokenizer.tokenize_frozen(video)
+        act_idxs, act_loss, act_aux = self.latent_action(video)
+        act_idxs = self.align_actions(act_idxs, tok_idxs.shape[1])
+        dyn_loss, dyn_aux = self.dynamics.compute_loss(
+            tok_idxs, act_idxs, mask=mask, generator=generator
+        )
+        aux = {
+            "act_loss": act_loss,
+            "dyn_loss": dyn_loss,
+            **{f"act_{k}": v for k, v in act_aux.items()},
+            **{f"dyn_{k}": v for k, v in dyn_aux.items()},
+        }
+        return act_loss + dyn_loss, aux
+
+    @staticmethod
+    def align_actions(act_idxs: torch.Tensor, t_tok: int) -> torch.Tensor:
+        """Subsample per-input-frame action ids to the token time axis
+        (a time-compressing tokenizer yields fewer token frames)."""
+        t_act = act_idxs.shape[1]
+        if t_act != t_tok:
+            act_idxs = act_idxs[:, :: t_act // t_tok][:, :t_tok]
+        return act_idxs
 
     @property
     def act_vocab(self) -> int:

@@ -1,5 +1,8 @@
 """VideoTokenizer, inference part (twin of `open_genie_tpu.models.tokenizer`).
 
+Training the tokenizer is not ported yet; a Genie training step uses it
+frozen (`tokenize_frozen`).
+
 Layout `(B, T, H, W, C)` channels-last. Inputs are cast to the model's
 parameter dtype (JAX promotes mixed dtypes; torch refuses them).
 """
@@ -14,19 +17,7 @@ from torch import nn
 from open_genie_tpu_torch.modules import parse_blueprint
 from open_genie_tpu_torch.modules.quantization import LookupFreeQuantization
 from open_genie_tpu_torch.ops.kernels.lfq_head import lfq_head
-from open_genie_tpu_torch.utils import cast_tuple, module_dtype
-
-
-def _last_out_channels(blueprint) -> Optional[int]:
-    """Last explicit output width in a blueprint (the encoder's output)."""
-    out = None
-    for desc in blueprint:
-        if isinstance(desc, str):
-            continue
-        for key in ("out_channels", "n_embd", "d_out"):
-            if desc[1].get(key) is not None:
-                out = desc[1][key]
-    return out
+from open_genie_tpu_torch.utils import cast_tuple, last_out_channels, module_dtype
 
 
 def _first_in_channels(blueprint) -> Optional[int]:
@@ -54,7 +45,7 @@ class VideoTokenizer(nn.Module):
                 "externally conditioned tokenizer layers (has_ext) are not "
                 "ported yet"
             )
-        last_enc = _last_out_channels(enc_desc)
+        last_enc = last_out_channels(enc_desc)
         first_dec = _first_in_channels(dec_desc)
         assert last_enc == first_dec, (
             f"Inconsistent encoder/decoder dimensions: {last_enc} vs {first_dec}"
@@ -104,8 +95,18 @@ class VideoTokenizer(nn.Module):
 
         With a fusable head, the head conv + LFQ run as kernel K2 (its
         plain twin on a CPU tensor)."""
+        return self._tokenize(video)
+
+    @torch.no_grad()
+    def tokenize_frozen(self, video: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`tokenize` for a training step with this tokenizer frozen: no
+        graph either, but ordinary tensors that a later layer may save for
+        its backward (inference-mode tensors may not be)."""
+        return self._tokenize(video)
+
+    def _tokenize(self, video: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         if not self.head_fusable():
-            return self.quant(self.encode(video))
+            return self.quant(self.encode(video))[0]
         x = video.to(module_dtype(self))
         for layer in self.enc_layers[:-1]:
             x = layer(x)

@@ -1,9 +1,13 @@
 """Attention stack: core, spatial, temporal and factorized space-time blocks.
 
-Twin of `open_genie_tpu.modules.attention`, self-attention only (the
-cross-attention conditioning of the latent-action model is not ported yet).
-The JAX package's three `to_q/to_k/to_v` projections are one fused `to_qkv`
-Linear here, in the order `[q | k | v]` (see `bridge.py`).
+Twin of `open_genie_tpu.modules.attention`. Self-attention fuses the JAX
+package's three `to_q/to_k/to_v` projections into one `to_qkv` Linear, in
+the order `[q | k | v]` (see `bridge.py`). Cross-attention (an `Attention`
+built with `key_dim`, as the latent-action decoder's temporal attention
+is) keeps `to_q` apart from `to_k`/`to_v`, whose inputs are narrower; its
+keys and values are used raw, and RoPE and the LayerNorm act on the
+queries only. Dropout after the output projection follows the module's
+`training` flag.
 
 KV-cached decode: a cache entry of one space-time block is the dict made
 by `st_attn_cache`. A commit step (`cache_write=True`) writes the frame's
@@ -13,7 +17,7 @@ port saves the copy). A refine step (`cache_write=False`) reads it only.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -26,10 +30,12 @@ from open_genie_tpu_torch.utils import default
 
 
 class Attention(nn.Module):
-    """Pre-LayerNorm multi-head self-attention over `(B, N, C)` sequences.
+    """Pre-LayerNorm multi-head attention over `(B, N, C)` sequences.
 
-    Optional RoPE (`rope_kind` '1d' or '2d') rotates the input before the
-    norm, at position offset `cache_pos` in decode mode.
+    Optional RoPE (`rope_kind` '1d' or '2d') rotates the query input before
+    the norm, at position offset `cache_pos` in decode mode. With `key_dim`
+    it is cross-attention: `forward` takes a `key` input of that width,
+    used raw as keys and values.
     """
 
     def __init__(
@@ -38,9 +44,11 @@ class Attention(nn.Module):
         d_head: int,
         d_inp: int,
         d_out: Optional[int] = None,
+        key_dim: Optional[int] = None,
         bias: bool = False,
         scale: Optional[float] = None,
         causal: bool = False,
+        dropout: float = 0.0,
         rope_kind: Optional[str] = None,
     ):
         super().__init__()
@@ -48,9 +56,16 @@ class Attention(nn.Module):
         self.n_head, self.d_head = n_head, d_head
         self.scale = default(scale, d_head ** -0.5)
         self.causal = causal
+        self.key_dim = key_dim
         self.norm = nn.LayerNorm(d_inp, eps=1e-6)
-        self.to_qkv = nn.Linear(d_inp, 3 * hid, bias=bias)
+        if key_dim is None:
+            self.to_qkv = nn.Linear(d_inp, 3 * hid, bias=bias)
+        else:
+            self.to_q = nn.Linear(d_inp, hid, bias=bias)
+            self.to_k = nn.Linear(key_dim, hid, bias=bias)
+            self.to_v = nn.Linear(key_dim, hid, bias=bias)
         self.to_out = nn.Linear(hid, default(d_out, d_inp), bias=bias)
+        self.dropout = nn.Dropout(dropout) if dropout > 0.0 else None
         # Kept in f32 outside the module's buffers, so casting the module
         # to bf16 does not round the frequencies.
         self._freq = None if rope_kind is None else rope_frequencies(d_inp, rope_kind)
@@ -62,25 +77,48 @@ class Attention(nn.Module):
             freq = self._freq_on[x.device] = torch.from_numpy(self._freq).to(x.device)
         return apply_rope(x, freq, offset=offset)
 
+    def _heads(self, t: torch.Tensor) -> torch.Tensor:
+        b, n, _ = t.shape
+        return t.view(b, n, self.n_head, self.d_head).transpose(1, 2)
+
+    def _cross_qkv(self, x, key):
+        if key is None:
+            raise ValueError("cross-attention (key_dim set) needs a key input")
+        if key.shape[-1] != self.key_dim:
+            raise ValueError(
+                f"declared key_dim={self.key_dim} but the key input has width "
+                f"{key.shape[-1]}"
+            )
+        return (self._heads(self.to_q(x)), self._heads(self.to_k(key)),
+                self._heads(self.to_v(key)))
+
     def forward(
         self,
         x: torch.Tensor,
+        key: Optional[torch.Tensor] = None,
         kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         cache_pos: Optional[int] = None,
         cache_write: bool = True,
     ):
-        """Full self-attention, or single-position decode against the
-        `(B, heads, T_max, Dh)` buffers `kv_cache` at position `cache_pos`
-        (then returns `(out, (k_buf, v_buf))`)."""
+        """Full attention, or single-position self-attention decode against
+        the `(B, heads, T_max, Dh)` buffers `kv_cache` at position
+        `cache_pos` (then returns `(out, (k_buf, v_buf))`)."""
         decode = kv_cache is not None
         if self._freq is not None:
             x = self._rope(x, cache_pos if decode else 0)
         x = self.norm(x)
         b, n, _ = x.shape
-        q, k, v = (
-            self.to_qkv(x).view(b, n, 3, self.n_head, self.d_head)
-            .permute(2, 0, 3, 1, 4).unbind(0)
-        )
+        if self.key_dim is not None:
+            if decode:
+                raise ValueError("cached decode does not support cross-attention")
+            q, k, v = self._cross_qkv(x, key)
+        else:
+            if key is not None:
+                raise ValueError("a key input needs an Attention built with key_dim")
+            q, k, v = (
+                self.to_qkv(x).view(b, n, 3, self.n_head, self.d_head)
+                .permute(2, 0, 3, 1, 4).unbind(0)
+            )
 
         if decode and not cache_write:
             k_buf, v_buf = kv_cache
@@ -95,6 +133,8 @@ class Attention(nn.Module):
             attn = dot_product_attention(q, k, v, self.scale, causal=self.causal)
 
         out = self.to_out(attn.transpose(1, 2).reshape(b, n, -1))
+        if self.dropout is not None:
+            out = self.dropout(out)
         if decode:
             return out, (k_buf, v_buf)
         return out
@@ -121,37 +161,47 @@ def _read_only_decode(q, k, v, k_buf, v_buf, cache_pos, scale):
 
 
 class SpatialAttention(nn.Module):
-    """Self-attention over the `H * W` grid of each frame, batched over (B, T)."""
+    """Attention over the `H * W` grid of each frame, batched over (B, T).
+    An optional `(B, H*W, key_dim)` condition cross-attends as keys and
+    values, repeated over time."""
 
-    def __init__(self, n_head, d_head, d_inp, d_out=None, bias=False,
-                 embed=True, scale=None):
+    def __init__(self, n_head, d_head, d_inp, d_out=None, key_dim=None,
+                 bias=False, embed=True, scale=None, dropout=0.0):
         super().__init__()
         self.attn = Attention(
-            n_head, d_head, d_inp, d_out, bias=bias, scale=scale,
-            rope_kind="2d" if embed else None,
+            n_head, d_head, d_inp, d_out, key_dim=key_dim, bias=bias,
+            scale=scale, dropout=dropout, rope_kind="2d" if embed else None,
         )
 
-    def forward(self, video: torch.Tensor) -> torch.Tensor:
+    def forward(self, video: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
         b, t, h, w, c = video.shape
-        out = self.attn(video.reshape(b * t, h * w, c))
+        if cond is not None:
+            cond = cond.repeat_interleave(t, dim=0)  # (B*T, HW, Ck)
+        out = self.attn(video.reshape(b * t, h * w, c), key=cond)
         return out.reshape(b, t, h, w, out.shape[-1])
 
 
 class TemporalAttention(nn.Module):
-    """Causal self-attention over time, batched over (B, H, W) pixel tubes."""
+    """Causal attention over time, batched over (B, H, W) pixel tubes. An
+    optional `(B, T, key_dim)` condition cross-attends as keys and values,
+    repeated over space (how latent actions condition the latent-action
+    decoder)."""
 
-    def __init__(self, n_head, d_head, d_inp, d_out=None, bias=False,
-                 embed=True, scale=None):
+    def __init__(self, n_head, d_head, d_inp, d_out=None, key_dim=None,
+                 bias=False, embed=True, scale=None, dropout=0.0):
         super().__init__()
         self.attn = Attention(
-            n_head, d_head, d_inp, d_out, bias=bias, scale=scale, causal=True,
+            n_head, d_head, d_inp, d_out, key_dim=key_dim, bias=bias,
+            scale=scale, causal=True, dropout=dropout,
             rope_kind="1d" if embed else None,
         )
 
-    def forward(self, video, kv_cache=None, cache_pos=None, cache_write=True):
+    def forward(self, video, cond=None, kv_cache=None, cache_pos=None, cache_write=True):
         b, t, h, w, c = video.shape
         seq = video.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, c)
-        out = self.attn(seq, kv_cache=kv_cache, cache_pos=cache_pos,
+        if cond is not None:
+            cond = cond.repeat_interleave(h * w, dim=0)  # (B*H*W, T, Ck)
+        out = self.attn(seq, key=cond, kv_cache=kv_cache, cache_pos=cache_pos,
                         cache_write=cache_write)
         if kv_cache is not None:
             out, new_kv = out
@@ -203,17 +253,13 @@ class SpaceTimeAttention(nn.Module):
         bias: bool = False,
         embed: Union[bool, Tuple[bool, bool]] = True,
         scale: Optional[float] = None,
-        dropout: float = 0.0,  # training only; inference ignores it
+        dropout: float = 0.0,
         kernel_size: int = 3,
         transpose: bool = False,  # accepted for blueprint compatibility
-        time_attn_kw=None,
-        space_attn_kw=None,
+        time_attn_kw: Optional[Dict[str, Any]] = None,
+        space_attn_kw: Optional[Dict[str, Any]] = None,
     ):
         super().__init__()
-        if time_attn_kw or space_attn_kw:
-            raise NotImplementedError(
-                "space-time_attn cross-attention kwargs are not ported yet"
-            )
         n_head, d_head, embed = _pair(n_head), _pair(d_head), _pair(embed)
         d_inp = default(default(d_inp, n_embd), n_head[0] * d_head[0])
         d_out = default(default(d_out, n_embd), n_head[1] * d_head[1])
@@ -221,10 +267,12 @@ class SpaceTimeAttention(nn.Module):
         time_hid = n_head[1] * d_head[1]
         self.hid_dim = hid_dim
         self.space_attn = SpatialAttention(
-            n_head[0], d_head[0], d_inp, space_hid, bias, embed[0], scale
+            n_head[0], d_head[0], d_inp, space_hid, bias=bias, embed=embed[0],
+            scale=scale, dropout=dropout, **dict(space_attn_kw or {}),
         )
         self.temp_attn = TemporalAttention(
-            n_head[1], d_head[1], space_hid, time_hid, bias, embed[1], scale
+            n_head[1], d_head[1], space_hid, time_hid, bias=bias, embed=embed[1],
+            scale=scale, dropout=dropout, **dict(time_attn_kw or {}),
         )
         self.ffn = ForwardBlock(
             time_hid, d_out, hid_dim, num_groups=n_head[1], use_bias=bias,
@@ -240,18 +288,25 @@ class SpaceTimeAttention(nn.Module):
         conv = getattr(self, name, None)
         return x if conv is None else conv3d_cl(x, conv.weight, conv.bias)
 
-    def forward(self, video, cache=None, cache_pos=None, cache_write=True):
+    def forward(self, video, cond=None, cache=None, cache_pos=None, cache_write=True):
         """Full forward on `(B, T, H, W, C)`, or cached decode of one frame
-        `(B, 1, H, W, C)` at time `cache_pos` (returns `(out, cache)`)."""
+        `(B, 1, H, W, C)` at time `cache_pos` (returns `(out, cache)`).
+
+        `cond` is one condition for both attentions or a `(space_cond,
+        time_cond)` pair; each needs its attention built with `key_dim`
+        (`space_attn_kw` / `time_attn_kw`)."""
         decode = cache is not None
-        video = self.space_attn(video) + self._skip("space_skip", video)
+        space_cond, time_cond = cond if isinstance(cond, tuple) else (cond, cond)
+        if decode and (space_cond is not None or time_cond is not None):
+            raise ValueError("cached decode does not support external conditioning")
+        video = self.space_attn(video, space_cond) + self._skip("space_skip", video)
         if decode:
             ta, _ = self.temp_attn(  # writes K/V into `cache` on commit
                 video, kv_cache=(cache["k"], cache["v"]), cache_pos=cache_pos,
                 cache_write=cache_write,
             )
         else:
-            ta = self.temp_attn(video)
+            ta = self.temp_attn(video, time_cond)
         video = ta + self._skip("time_skip", video)
         if decode:
             ffn = self._ffn_decode(video, cache, cache_write)

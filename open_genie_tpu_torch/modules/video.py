@@ -1,7 +1,9 @@
 """Video modules on channels-last `(B, T, H, W, C)` (twin of `open_genie_tpu.modules.video`).
 
 `t_factor` is each module's time-axis length scaling, read by
-`VideoTokenizer.temporal_downsampling`.
+`VideoTokenizer.temporal_downsampling`; the resamplers' `st_factor` is the
+space-time volume scaling (`time_factor * space_factor ** 2`, reciprocal
+for a downsampler), read by `LatentAction`'s encoder/decoder check.
 """
 from __future__ import annotations
 
@@ -68,6 +70,7 @@ class SpaceTimeDownsample(nn.Module):
     ):
         super().__init__()
         self.t_factor = 1.0 / time_factor
+        self.st_factor = 1.0 / (time_factor * space_factor ** 2)
         self.down = CausalConv3d(
             in_channels, default(out_channels, in_channels),
             kernel_size=kernel_size,
@@ -93,6 +96,7 @@ class DepthToSpaceTimeUpsample(nn.Module):
         out_ch = default(out_channels, in_channels)
         self.time_factor, self.space_factor = time_factor, space_factor
         self.t_factor = float(time_factor)
+        self.st_factor = float(time_factor * space_factor ** 2)
         self.conv = CausalConv3d(
             in_channels, out_ch * time_factor * space_factor ** 2,
             kernel_size=kernel_size,
@@ -100,3 +104,29 @@ class DepthToSpaceTimeUpsample(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return depth_to_spacetime(self.conv(x), self.time_factor, self.space_factor)
+
+
+class SpaceTimeUpsample(nn.Module):
+    """Strided transposed-conv upsample with kernel = stride =
+    `(time_factor, space_factor, space_factor)`: every input position
+    writes its own output block. Blueprint name `spacetime_upsample`."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: Optional[int] = None,
+        time_factor: int = 2,
+        space_factor: int = 2,
+        kernel_size: IntOr3 = 3,  # accepted for blueprint compatibility; unused
+    ):
+        super().__init__()
+        factors = (time_factor, space_factor, space_factor)
+        self.t_factor = float(time_factor)
+        self.st_factor = float(time_factor * space_factor ** 2)
+        self.up = nn.ConvTranspose3d(
+            in_channels, default(out_channels, in_channels), factors, stride=factors
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.up(x.permute(0, 4, 1, 2, 3))
+        return out.permute(0, 2, 3, 4, 1)

@@ -1,9 +1,9 @@
 """Scaled dot-product attention: plain path + flash-kernel dispatch.
 
 Twin of `open_genie_tpu.ops.attention`. Every call with no mask and as many
-queries as keys goes to the flash-attention wrapper (kernel K1 on a CUDA
-tensor, its plain twin on a CPU tensor); every other call takes the plain
-path. The JAX package sends such calls to its Pallas kernel only from 1024
+queries as keys goes to flash attention (kernel K1 on a CUDA tensor, and K3
+and K4 for its gradient; the plain twins on a CPU tensor); every other call
+takes the plain path. The JAX package sends such calls to its Pallas kernel only from 1024
 tokens up, a threshold measured on a TPU; on Hopper the threshold is still
 to be chosen by measurement, so all of them go to the kernel for now.
 """
@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from open_genie_tpu_torch.ops.kernels.flash_attention import flash_attention
+from open_genie_tpu_torch.ops.kernels.flash_attention import flash_attention_autograd
 
 
 def dot_product_attention(
@@ -36,8 +36,7 @@ def dot_product_attention(
         scale = d ** -0.5
     if mask is None and nq == nk:
         qf, kf, vf = (t.reshape(b * h, nq, d).contiguous() for t in (q, k, v))
-        out, _ = flash_attention(qf, kf, vf, scale, causal)
-        return out.view(b, h, nq, d)
+        return flash_attention_autograd(qf, kf, vf, scale, causal).view(b, h, nq, d)
     return _plain_attention(q, k, v, scale, causal=causal, mask=mask)
 
 

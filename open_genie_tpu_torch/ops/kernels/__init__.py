@@ -32,6 +32,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # q, k, v, o, lse, bh, n, d, dtype, scale, causal, stream
     "flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, dout, lse, delta, dk, dv, bh, n, d, dtype, scale, causal, stream
+    "flash_attention_bwd_dkv": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P,
+    ),
+    # q, k, v, dout, lse, delta, dq, bh, n, d, dtype, scale, causal, stream
+    "flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     # x, w, b, codes, idx, n, c, d, dtype, stream
     "lfq_head": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }

@@ -1,20 +1,30 @@
-"""Kernel K1: flash-attention forward (`csrc/flash_attention.cu`).
+"""Kernels K1, K3 and K4: flash attention, forward and backward.
 
-Replaces `open_genie_tpu/ops/pallas/flash_attention.py::_fwd_kernel`. The
-wrapper dispatches by device: a CPU tensor goes to the plain PyTorch twin,
-a CUDA tensor launches the kernel (or raises), any other device raises.
+K1 (`csrc/flash_attention.cu`) replaces
+`open_genie_tpu/ops/pallas/flash_attention.py::_fwd_kernel`; K3 and K4
+(`csrc/flash_attention_bwd.cu`) replace `_bwd_dkv_kernel` and
+`_bwd_dq_kernel`. Each wrapper dispatches by device: a CPU tensor goes to
+the plain PyTorch twin, a CUDA tensor launches the kernel (or raises), any
+other device raises.
+
+`FlashAttention` ties them into one `torch.autograd.Function` (the JAX
+package's `custom_vjp`): the forward is K1 and saves only
+`q, k, v, o, lse`, so the residuals stay O(N); the backward computes
+`delta = rowsum(dO * o)` and runs K3 (dk, dv), then K4 (dq).
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from open_genie_tpu_torch.ops import kernels
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
-_BLOCK_M = 64  # query rows per thread block (grid y <= 65535 tiles)
+_BLOCK_M = 64  # rows per thread block in every kernel (grid y <= 65535 tiles)
+_NEG_BIG = -1e30  # the Pallas kernels' masked logit
 
 
 def flash_attention_plain(
@@ -30,6 +40,28 @@ def flash_attention_plain(
     lse = torch.logsumexp(s, dim=-1)
     o = torch.matmul(torch.exp(s - lse[..., None]), v.float())
     return o.to(q.dtype), lse
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, scale: float, causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The explicit flash-attention gradient in f32: `(dq, dk, dv)` in q's
+    dtype. `p` is rounded to dO's dtype before `pT dO` and `ds` to q's
+    dtype before its two products, as the kernels do."""
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if causal:
+        n = s.shape[-1]
+        keep = torch.ones(n, n, dtype=torch.bool, device=s.device).tril()
+        s = s.masked_fill(~keep, _NEG_BIG)
+    p = torch.exp(s - lse[..., None])
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    dv = torch.matmul(p.to(do.dtype).float().transpose(-1, -2), dof)
+    ds = (p * (torch.matmul(dof, vf.transpose(-1, -2)) - delta)).to(q.dtype).float()
+    dq = scale * torch.matmul(ds, kf)
+    dk = scale * torch.matmul(ds.transpose(-1, -2), qf)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -54,6 +86,15 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention takes contiguous q, k, v")
 
 
+def _on_cuda(t: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {t.device}")
+    return True
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     causal: bool = False,
@@ -61,13 +102,12 @@ def flash_attention(
     """Attention over contiguous `(BH, N, D)` tensors -> `(o, lse)`.
 
     `o` has the input dtype, `lse` is float32 `(BH, N)`. With `causal`,
-    query i attends to keys `<= i`. Ragged N needs no padding.
+    query i attends to keys `<= i`. Ragged N needs no padding. Not
+    differentiable: `FlashAttention` is.
     """
     _check(q, k, v)
-    if q.device.type == "cpu":
+    if not _on_cuda(q, "flash_attention"):
         return flash_attention_plain(q, k, v, scale, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for device {q.device}")
     bh, n, d = q.shape
     lib = kernels.library()
     o = torch.empty_like(q)
@@ -84,3 +124,117 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+
+
+def _check_bwd(q, k, v, do, lse, delta) -> None:
+    _check(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
+        raise ValueError(
+            f"flash_attention backward takes a contiguous dO like q, got "
+            f"{tuple(do.shape)} {do.dtype}"
+        )
+    for t in (lse, delta):
+        if t.shape != q.shape[:2] or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError("flash_attention backward takes contiguous f32 (BH, N) lse, delta")
+    if not (q.device == do.device == lse.device == delta.device):
+        raise ValueError("flash_attention backward: tensors on different devices")
+
+
+def flash_attention_bwd_dkv(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, scale: float, causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel K3 on CUDA tensors: `(dk, dv)` from the saved forward and
+    `delta = rowsum(dO * o)` (f32 `(BH, N)`)."""
+    _check_bwd(q, k, v, do, lse, delta)
+    if not _on_cuda(q, "flash_attention_bwd_dkv"):
+        raise ValueError("flash_attention_bwd_dkv launches on CUDA tensors only")
+    bh, n, d = q.shape
+    lib = kernels.library()
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            bh, n, d, _DTYPES[q.dtype], float(scale), int(causal),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    kernels.check(err, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd_dq(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+    lse: torch.Tensor, delta: torch.Tensor, scale: float, causal: bool = False,
+) -> torch.Tensor:
+    """Kernel K4 on CUDA tensors: `dq`, from the same inputs as K3."""
+    _check_bwd(q, k, v, do, lse, delta)
+    if not _on_cuda(q, "flash_attention_bwd_dq"):
+        raise ValueError("flash_attention_bwd_dq launches on CUDA tensors only")
+    bh, n, d = q.shape
+    lib = kernels.library()
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = lib.flash_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            bh, n, d, _DTYPES[q.dtype], float(scale), int(causal),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    kernels.check(err, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, scale: float, causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`(dq, dk, dv)` of `flash_attention`: K3 then K4 on a CUDA tensor,
+    the plain twin on a CPU tensor."""
+    if not _on_cuda(q, "flash_attention_bwd"):
+        _check(q, k, v)
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, scale, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale, causal)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention over contiguous `(BH, N, D)` tensors;
+    returns `o` only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, causal: bool):
+        o, lse = flash_attention(q, k, v, scale, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return o
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, o, lse, do.contiguous(), ctx.scale, ctx.causal
+        )
+        return dq, dk, dv, None, None
+
+
+def flash_attention_autograd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+    causal: bool = False,
+) -> torch.Tensor:
+    """`o` of `flash_attention`, through `FlashAttention` when a gradient
+    is wanted; otherwise the forward alone, which saves nothing."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, scale, causal)
+    return flash_attention(q, k, v, scale, causal)[0]

@@ -26,6 +26,18 @@ def cast_tuple(val, length: int) -> tuple:
     return (val,) * length
 
 
+def last_out_channels(blueprint: Blueprint) -> Optional[int]:
+    """Last explicit output width in a blueprint (an encoder's output)."""
+    out = None
+    for desc in blueprint:
+        if isinstance(desc, str):
+            continue
+        for key in ("out_channels", "n_embd", "d_out"):
+            if desc[1].get(key) is not None:
+                out = desc[1][key]
+    return out
+
+
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights, drawn from `generator` in a fixed order.
@@ -36,11 +48,11 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     chip smoke run); parity tests load JAX weights through `bridge.py`.
     """
     for mod in module.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv3d)):
-            fan_in = mod.weight[0].numel()
-            mod.weight.copy_(
-                torch.randn(mod.weight.shape, generator=generator) * fan_in ** -0.5
-            )
+        if isinstance(mod, (nn.Linear, nn.Conv3d, nn.ConvTranspose3d)):
+            w = mod.weight  # a transposed conv's is (I, O, *k): fan-in I * k
+            fan_in = w.shape[0] * w[0, 0].numel() if isinstance(
+                mod, nn.ConvTranspose3d) else w[0].numel()
+            w.copy_(torch.randn(w.shape, generator=generator) * fan_in ** -0.5)
         elif isinstance(mod, nn.Embedding):
             mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator))
         elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):

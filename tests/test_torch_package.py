@@ -24,10 +24,13 @@ def test_port_imports_without_jax():
         "for name in ('jax', 'flax', 'open_genie_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import open_genie_tpu_torch.models.genie\n"
+        "import open_genie_tpu_torch.models.action\n"
         "import open_genie_tpu_torch.models.configs\n"
         "import open_genie_tpu_torch.bridge\n"
         "import open_genie_tpu_torch.ops.kernels.flash_attention\n"
         "import open_genie_tpu_torch.ops.kernels.lfq_head\n"
+        "import open_genie_tpu_torch.train.losses\n"
+        "import open_genie_tpu_torch.train.loop\n"
         "print('ok')\n"
     )
     proc = subprocess.run(

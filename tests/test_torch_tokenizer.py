@@ -61,7 +61,7 @@ def test_unfused_path_matches_fused(tokenizers):
     video = torch.from_numpy(_video(2, 1, 2, 32, 32, 3))
     _, idxs = ttok.tokenize(video)
     with torch.no_grad():
-        _, idxs_unfused = ttok.quant(ttok.encode(video))
+        (_, idxs_unfused), _, _ = ttok.quant(ttok.encode(video))
     assert torch.equal(idxs, idxs_unfused)
 
 
@@ -97,8 +97,9 @@ def test_temporal_front_pad_matches_jax():
     )
     cfg["tokenizer"] = tok
     jm, tm = JGenie(**cfg), Genie(**cfg)
+    # 32x32 frames: the latent action's `to_act` is sized by its inp_shape.
     params = jax.jit(
-        lambda k: jm.init(k, jnp.zeros((1, 4, 16, 16, 3)), k, method=jm.init_full)
+        lambda k: jm.init(k, jnp.zeros((1, 4, 32, 32, 3)), k, method=jm.init_full)
     )(jax.random.PRNGKey(1))["params"]
     load_flax_params(tm, jax.tree.map(np.asarray, params))
     assert tm.tokenizer.temporal_downsampling == 2
