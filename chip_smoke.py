@@ -27,16 +27,32 @@ Phases, in order (any failure raises and the exit code is non-zero):
      4 x 16 frames x 64x64, bf16 compute on f32 weights): finite loss and
      grad norm, a gradient on every trainable parameter, the tokenizer
      unchanged, the kernels' launch counts per step, ms per step and peak
-     memory.
-The line before the last is a JSON summary of the kernels (launches on one
-training step, and by path); the last line is `{"ok": true, "device":
-{...}}`. Without a CUDA device it exits 1 at once.
+     memory;
+ 10. kernels K5 and K6 (LFQ entropy over 2^d codes, forward and gradient)
+     against their plain twins at d 13 and 18, gentle and trained feature
+     scales, ragged token counts; determinism; both times at (512, 18);
+     then K1, K3 and K4 at head dim 32 at the frame discriminator's two
+     calls in full, and their times;
+ 11. one compact tokenizer training step on the card against the same step
+     on the CPU: loss, every gradient, the parameters after AdamW, f32;
+ 12. full-width tokenizer training steps (`tokenizer_train_config()`, the
+     JAX benchmark's MAGVIT2 d=18 full-loss step, batch 4 x 8 frames x
+     64x64, bf16 on f32 weights): finite loss terms and grad norm, the
+     kernels' launch counts per step, the VGG unchanged; a gradient on
+     every trainable parameter in the first three; the median ms per step
+     of ten more, frames/s and peak memory; one profiled step's device time
+     and its largest ops.
+The line before the last is a JSON summary of the kernels (`launches` on
+one step of the newest path that runs each, and the counts by path); the
+last line is `{"ok": true, "device": {...}}`. Without a CUDA device it
+exits 1 at once.
 """
 from __future__ import annotations
 
 import copy
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -55,6 +71,7 @@ K3K4_TOL_F32 = dict(atol=1e-4, rtol=1e-5)
 K3K4_TOL_BF16 = dict(atol=2e-2, rtol=2e-2)
 LFQ_UNDECIDED = 1e-5  # |z| below this is a sign decided by rounding
 PIX_TOL = dict(atol=2e-3, rtol=2e-2)  # the repo's parity bound for stacks
+TOK_TIMED_STEPS = 10  # full-width tokenizer steps timed after the three checked
 
 
 def _import_port():
@@ -81,10 +98,12 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def in_turns(plain, kernel) -> tuple:
+def in_turns(plain, kernel, plain_iters: int = 50) -> tuple:
     """Times of the plain version and the kernel, run plain, kernel,
     kernel, plain; each the mean of its two runs."""
-    p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
+    p1 = cuda_ms(plain, iters=plain_iters, warmup=min(5, plain_iters))
+    k1, k2 = cuda_ms(kernel), cuda_ms(kernel)
+    p2 = cuda_ms(plain, iters=plain_iters, warmup=min(5, plain_iters))
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
@@ -291,6 +310,131 @@ def phase_flash_bwd(dev) -> tuple:
              "replaces": "open_genie_tpu/ops/pallas/flash_attention.py:237"})
 
 
+def phase_lfq_entropy(dev) -> tuple:
+    """K5 and K6 against their plain twins on the same inputs, at the
+    tokenizer's codebooks (d 13 and 18) and token counts (512, ragged 1000
+    and 33), gentle (beta 5) and trained (beta 100, |x| about 1 and 3);
+    determinism; both times at the full-width call (512, 18). Then K1, K3
+    and K4 at head dim 32, the frame discriminator's."""
+    from open_genie_tpu_torch.ops.kernels.lfq_entropy import (
+        avg_probs_plain,
+        entropy_grad_plain,
+        entropy_of,
+        lfq_avg_probs,
+        lfq_entropy_grad,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    eps = 1e-6
+
+    def weights(q):
+        return torch.where(q > eps, 1.0 + torch.log(q.clamp_min(eps)), math.log(eps))
+
+    errs = {"q": 0.0, "q_rel": 0.0, "dx": 0.0, "dx_cos": 1.0}
+    for d in (13, 18):
+        for n in (512, 1000, 33):
+            for beta, scale in ((5.0, 0.1), (100.0, 1.0), (100.0, 3.0)):
+                x = torch.randn(n, d, generator=g, device=dev) * scale
+                q, q_ref = lfq_avg_probs(x, beta), avg_probs_plain(x, beta)
+                w = weights(q_ref)
+                dx = lfq_entropy_grad(x, w, beta) / n
+                dx_ref = entropy_grad_plain(x, w, beta) / n
+                torch.cuda.synchronize()
+                e_q = ((q - q_ref).abs().max() / q_ref.abs().max()).item()
+                h, h_ref = entropy_of(q, eps).item(), entropy_of(q_ref, eps).item()
+                e_h = abs(h - h_ref) / abs(h_ref)
+                cos = torch.nn.functional.cosine_similarity(
+                    dx.flatten().double(), dx_ref.flatten().double(), dim=0).item()
+                print(f"[K5/K6] (n,d)=({n},{d}) beta={beta} |x|~{scale}: q rel {e_q:.3g}, "
+                      f"H {h:.6g} rel {e_h:.3g}, dx cos {cos:.7f} "
+                      f"max|d dx| {(dx - dx_ref).abs().max().item():.3g}")
+                assert e_q <= 1e-3 and e_h <= 1e-3, "K5 disagrees with its plain twin"
+                assert cos > 0.999 or dx_ref.abs().max() == 0, "K6 direction disagrees"
+                if beta == 5.0:
+                    torch.testing.assert_close(dx, dx_ref, atol=2e-4, rtol=2e-2)
+                errs["q"] = max(errs["q"], (q - q_ref).abs().max().item())
+                errs["q_rel"] = max(errs["q_rel"], e_q)
+                errs["dx"] = max(errs["dx"], (dx - dx_ref).abs().max().item())
+                errs["dx_cos"] = min(errs["dx_cos"], cos)
+    x = torch.randn(512, 18, generator=g, device=dev)
+    xb = x.bfloat16()
+    torch.testing.assert_close(lfq_avg_probs(xb, 100.0), lfq_avg_probs(xb.float(), 100.0),
+                               atol=0, rtol=0)
+    w = weights(lfq_avg_probs(x, 100.0))
+    same = (torch.equal(lfq_avg_probs(x, 100.0), lfq_avg_probs(x, 100.0))
+            and torch.equal(lfq_entropy_grad(x, w, 100.0), lfq_entropy_grad(x, w, 100.0)))
+    assert same, "K5/K6 not deterministic"
+    print("[K5/K6] bf16 features give the f32 result of their values; two calls at "
+          "(512,18) bit-identical q and dx")
+    k5_ms, k5_plain = in_turns(lambda: avg_probs_plain(x, 100.0), lambda: lfq_avg_probs(x, 100.0),
+                               plain_iters=5)
+    k6_ms, k6_plain = in_turns(lambda: entropy_grad_plain(x, w, 100.0),
+                               lambda: lfq_entropy_grad(x, w, 100.0), plain_iters=5)
+    print(f"[K5/K6 time] (n,d)=(512,18) f32: K5 {k5_ms:.4f} ms, plain {k5_plain:.4f} ms; "
+          f"K6 {k6_ms:.4f} ms, plain {k6_plain:.4f} ms")
+    _flash_head_dim_32(dev)
+    common = {"route": "cuda", "source": "open_genie_tpu_torch/csrc/lfq_entropy.cu",
+              "shape": [512, 18]}
+    return ({"name": "lfq_entropy_fwd", **common, "max_abs_err": errs["q"],
+             "max_rel_err": errs["q_rel"], "ms": k5_ms, "plain_ms": k5_plain,
+             "replaces": "open_genie_tpu/ops/pallas/lfq_entropy.py:41"},
+            {"name": "lfq_entropy_bwd", **common, "max_abs_err": errs["dx"],
+             "min_cos": errs["dx_cos"], "ms": k6_ms, "plain_ms": k6_plain,
+             "replaces": "open_genie_tpu/ops/pallas/lfq_entropy.py:74"})
+
+
+def _by_heads(fn, tensors, *args, heads: int = 8) -> tuple:
+    """`fn(*tensors, *args)` over slices of `heads` of the leading B*H axis,
+    concatenated: the plain twins' (N, N) logits of a few heads at a time."""
+    parts = [fn(*(t[i:i + heads] for t in tensors), *args)
+             for i in range(0, tensors[0].shape[0], heads)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def _flash_head_dim_32(dev) -> None:
+    """K1, K3 and K4 at the frame discriminator's head dim 32, at both of
+    its calls in full, (64, 4096, 32) and (64, 1024, 32), f32 and bf16,
+    against the plain twins run over slices of 8 heads; both times on the
+    bf16 tensors at (64, 4096, 32) that were checked."""
+    from open_genie_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+        flash_attention_plain,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    s = 32 ** -0.5
+    for bh, n in ((64, 4096), (64, 1024)):
+        for dtype, tol in ((torch.float32, K3K4_TOL_F32), (torch.bfloat16, K3K4_TOL_BF16)):
+            q, k, v, do = (torch.randn(bh, n, 32, generator=g, device=dev).to(dtype)
+                           for _ in range(4))
+            o, lse = flash_attention(q, k, v, s)
+            o_ref, _ = _by_heads(flash_attention_plain, (q.float(), k.float(), v.float()), s)
+            got = flash_attention_bwd(q, k, v, o, lse, do, s)
+            ref = _by_heads(flash_attention_bwd_plain, (q, k, v, o, lse, do), s)
+            torch.cuda.synchronize()
+            e_o = (o.float() - o_ref).abs().max().item()
+            e_g = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, ref)]
+            print(f"[K1/K3/K4 D=32] (BH,N)=({bh},{n}) {dtype}: |do| {e_o:.3g}, "
+                  f"|d(dq,dk,dv)| {[f'{e:.3g}' for e in e_g]}")
+            assert e_o <= (K1_TOL_F32 if dtype == torch.float32 else K1_TOL_BF16), "K1 D=32"
+            for a, b in zip(got, ref):
+                torch.testing.assert_close(a.float(), b.float(), **tol)
+            if (n, dtype) == (4096, torch.bfloat16):
+                timed = (q, k, v, o, lse, do)
+    q, k, v, o, lse, do = timed
+    k1_ms, k1_plain = in_turns(lambda: _by_heads(flash_attention_plain, (q, k, v), s),
+                               lambda: flash_attention(q, k, v, s), plain_iters=3)
+    bwd_ms, bwd_plain = in_turns(
+        lambda: _by_heads(flash_attention_bwd_plain, (q, k, v, o, lse, do), s),
+        lambda: flash_attention_bwd(q, k, v, o, lse, do, s), plain_iters=3)
+    print(f"[K1/K3/K4 D=32 time] bf16 (64,4096,32): K1 {k1_ms:.3f} ms, plain {k1_plain:.3f} ms; "
+          f"K3 + K4 {bwd_ms:.3f} ms, plain backward {bwd_plain:.3f} ms (plain over 8 slices "
+          f"of 8 heads)")
+
+
 def phase_compact_parity(dev):
     """Compact model: the card (kernels) against the CPU (plain twins)."""
     from open_genie_tpu_torch.models.configs import genie_compact_config
@@ -387,11 +531,13 @@ def _counters() -> dict:
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
     )
+    from open_genie_tpu_torch.ops.kernels.lfq_entropy import lfq_avg_probs, lfq_entropy_grad
     from open_genie_tpu_torch.ops.kernels.lfq_head import lfq_head
 
     return {"flash_attention_fwd": flash_attention, "lfq_head": lfq_head,
             "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
-            "flash_attention_bwd_dq": flash_attention_bwd_dq}
+            "flash_attention_bwd_dq": flash_attention_bwd_dq,
+            "lfq_entropy_fwd": lfq_avg_probs, "lfq_entropy_bwd": lfq_entropy_grad}
 
 
 def _reset_counts() -> None:
@@ -483,7 +629,8 @@ def phase_train_full_width(dev) -> dict:
     # of its attentions in the backward. The frozen tokenizer has no backward.
     expect = {"flash_attention_fwd": n_tok + 2 * n_la + n_dyn,
               "flash_attention_bwd_dkv": n_la + n_dyn,
-              "flash_attention_bwd_dq": n_la + n_dyn, "lfq_head": 1}
+              "flash_attention_bwd_dq": n_la + n_dyn, "lfq_head": 1,
+              "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0}  # codebooks of <= 4096 codes
     print(f"[train] {sum(p.numel() for p in module.parameters()) / 1e6:.1f}M parameters, "
           f"{sum(p.numel() for p in opt.params) / 1e6:.1f}M trainable; attentions: "
           f"tokenizer encoder {n_tok}, latent action {n_la}, dynamics {n_dyn}")
@@ -529,6 +676,170 @@ def phase_train_full_width(dev) -> dict:
     return counts
 
 
+def phase_compact_tokenizer_train(dev):
+    """One compact tokenizer training step on the card (K1, K3, K4 in the
+    discriminator, K5/K6 for the 13-bit codebook's entropy) against the
+    same step on the CPU (plain twins): same weights, video and frame
+    indices, f32 with TF32 off. Loss, every gradient, the parameters after
+    AdamW."""
+    from open_genie_tpu_torch.models.configs import tokenizer_compact_train_config
+    from open_genie_tpu_torch.train.losses import TokenizerTrainModule, frozen_param_mask
+    from open_genie_tpu_torch.train.loop import make_optimizer
+    from open_genie_tpu_torch.utils import init_weights, random_frame_idxs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True  # the GAN's two D passes cancel exactly
+    g = torch.Generator().manual_seed(SEED + 11)
+    cfg = tokenizer_compact_train_config()
+    cpu = init_weights(TokenizerTrainModule(**cfg), g)
+    gpu = copy.deepcopy(cpu).to(dev)
+    video = torch.rand(2, 4, 32, 32, 3, generator=g)
+    k = cfg["gan_frames_per_batch"]
+    idxs = {"perc_idxs": random_frame_idxs(g, 2, 4, k), "gan_idxs": random_frame_idxs(g, 2, 4, k)}
+    out = {}
+    for name, module, d in (("cpu", cpu, "cpu"), ("cuda", gpu, dev)):
+        opt = make_optimizer(module, lr=1e-4, frozen_mask=frozen_param_mask(module, ("perc_crit",)))
+        _reset_counts()
+        loss, _ = module(video.to(d), **{n: i.to(d) for n, i in idxs.items()})
+        loss.backward()
+        counts = _read_counts()
+        grads = {n: p.grad.detach().cpu().clone()
+                 for n, p in module.named_parameters() if p.grad is not None}
+        opt.step()
+        params = {n: p.detach().cpu() for n, p in module.named_parameters()}
+        out[name] = (loss.item(), grads, params, counts)
+    (l_cpu, g_cpu, p_cpu, _), (l_gpu, g_gpu, p_gpu, counts) = out["cpu"], out["cuda"]
+    assert set(g_cpu) == set(g_gpu) and len(g_gpu) > 0
+    g_err = max((g_gpu[n] - g_cpu[n]).abs().max().item() for n in g_cpu)
+    p_err = max((p_gpu[n] - p_cpu[n]).abs().max().item() for n in p_cpu)
+    print(f"[compact tokenizer] loss CUDA {l_gpu:.6f} vs CPU {l_cpu:.6f}; max |d grad| "
+          f"{g_err:.3g} over {len(g_gpu)} gradients; max |d param| after AdamW {p_err:.3g}; "
+          f"launches {counts}")
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu), "compact tokenizer loss differs"
+    for n in g_cpu:
+        torch.testing.assert_close(g_gpu[n], g_cpu[n], **PIX_TOL, msg=lambda m, n=n: f"{n}: {m}")
+    assert p_err <= 2.1e-4, "parameters after the step differ"
+    assert all(counts[k] > 0 for k in ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                                       "flash_attention_bwd_dq", "lfq_entropy_fwd",
+                                       "lfq_entropy_bwd"))
+
+
+def phase_tokenizer_train_full_width(dev) -> dict:
+    """`tokenizer_train_config()` (the JAX benchmark's MAGVIT2 d=18
+    full-loss step) at batch 4 x 8 frames x 64x64, bf16 compute on f32
+    master weights, the benchmark's AdamW defaults, the VGG frozen; three
+    steps through `make_train_step`."""
+    from open_genie_tpu_torch.models.configs import tokenizer_train_config
+    from open_genie_tpu_torch.modules.attention import Attention
+    from open_genie_tpu_torch.modules.quantization import LookupFreeQuantization
+    from open_genie_tpu_torch.train.losses import TokenizerTrainModule, frozen_param_mask
+    from open_genie_tpu_torch.train.loop import make_optimizer, make_train_step
+    from open_genie_tpu_torch.utils import init_weights
+
+    torch.backends.cudnn.deterministic = True
+    g = torch.Generator().manual_seed(SEED + 12)
+    module = init_weights(TokenizerTrainModule(**tokenizer_train_config()), g).to(dev)
+    frozen = frozen_param_mask(module, ("perc_crit",))
+    opt = make_optimizer(module, frozen_mask=frozen)  # lr 1e-3, as bench.py's make_optimizer()
+    step = make_train_step(module, opt, compute_dtype=torch.bfloat16)
+    video = torch.rand(4, 8, 64, 64, 3, generator=g).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    vgg_before = {n: p.detach().clone() for n, p in module.perc_crit.named_parameters()}
+
+    # The discriminator runs three times (d_fs, d_f, d_r), each with a
+    # backward; the tokenizer has no attention. One entropy per codebook.
+    n_attn = sum(isinstance(m, Attention) for m in module.gan_crit.modules())
+    n_lfq = sum(isinstance(m, LookupFreeQuantization) for m in module.modules())
+    expect = {"flash_attention_fwd": 3 * n_attn, "flash_attention_bwd_dkv": 3 * n_attn,
+              "flash_attention_bwd_dq": 3 * n_attn, "lfq_head": 0,
+              "lfq_entropy_fwd": n_lfq, "lfq_entropy_bwd": n_lfq}
+    print(f"[tokenizer train] {sum(p.numel() for p in module.parameters()) / 1e6:.1f}M "
+          f"parameters, {sum(p.numel() for p in opt.params) / 1e6:.1f}M trainable; "
+          f"discriminator attentions {n_attn}, LFQ codebooks {n_lfq}")
+
+    nonzero = {}
+    hooks = [p.register_post_accumulate_grad_hook(
+        lambda p, n=n: nonzero.__setitem__(n, nonzero.get(n, 0) + int(p.grad.count_nonzero())))
+        for n, p in module.named_parameters() if frozen[n]]
+    torch.cuda.reset_peak_memory_stats()
+    times, counts = [], None
+    terms = ("rec_loss", "gen_loss", "dis_loss", "perc_loss", "quant_loss",
+             "lfq_sample_entropy", "lfq_avg_entropy", "lfq_commit_loss", "lfq_bit_entropy")
+    # Steps 0-2 are checked in full; the gradient hooks sync the host once
+    # per parameter, so they come off before steps 3-12, which are timed.
+    for i in range(3 + TOK_TIMED_STEPS):
+        if i == 3:
+            for h in hooks:
+                h.remove()
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        metrics = step(video, generator=gen)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = _read_counts()
+        loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
+        assert math.isfinite(loss) and math.isfinite(norm), "non-finite loss or grad_norm"
+        assert all(math.isfinite(metrics[k].item()) for k in terms), "a non-finite loss term"
+        assert counts == expect, f"launches {counts}, expected {expect}"
+        if i >= 3:
+            continue
+        parts = ", ".join(f"{k} {metrics[k].item():.4f}" for k in terms)
+        print(f"[tokenizer train] step {i}: loss {loss:.4f} ({parts}), grad_norm {norm:.4f}, "
+              f"{times[-1] * 1e3:.1f} ms, launches {counts}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # The hinge loss gives D's output bias the gradient (#fake scores above
+    # -1 - #real scores below 1) / N: exactly zero while every score lies
+    # inside the margin, as from a random init.
+    head_bias = "gan_crit.disc.head.bias"
+    trainable = [n for n in frozen if frozen[n]]
+    zero = [n for n in trainable if nonzero.get(n, 0) == 0]
+    n_disc = sum(n.startswith("gan_crit.") for n in trainable)
+    print(f"[tokenizer train] nonzero gradient in steps 0-2 on {len(trainable) - len(zero)}/"
+          f"{len(trainable)} trainable parameters ({n_disc} of them the discriminator's); "
+          f"{head_bias}: {nonzero.get(head_bias, 0)} nonzero entries")
+    assert not set(zero) - {head_bias}, f"no gradient reached {zero}"
+    assert all(torch.equal(p, vgg_before[n]) for n, p in module.perc_crit.named_parameters()), (
+        "a frozen VGG parameter changed")
+    timed = sorted(t * 1e3 for t in times[3:])
+    ms = statistics.median(timed)
+    frames = video.shape[0] * video.shape[1]
+    print(f"[tokenizer train] VGG parameters bit-unchanged after {len(times)} steps; "
+          f"{ms:.1f} ms per step, {frames / ms * 1e3:.1f} frames/s (median of steps 3-"
+          f"{len(times) - 1}, min {timed[0]:.1f}, max {timed[-1]:.1f}; step 0 "
+          f"{times[0] * 1e3:.1f} ms); peak memory {peak:.2f} GiB")
+    _profile_step(step, video, gen, ms)
+    return counts
+
+
+def _profile_step(step, video, gen, step_ms: float, top: int = 10) -> None:
+    """One more step under `torch.profiler`: the device time of its
+    kernels against the unprofiled step time `step_ms`, and the kernels
+    that took the most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(video, generator=gen)
+        torch.cuda.synchronize()
+    # Kernels only: an op on the host, or a range annotated on the device
+    # (the optimizer's step), is charged its kernels' time as well.
+    kern = sorted((e for e in prof.key_averages() if e.device_type.name == "CUDA"
+                   and not getattr(e, "is_user_annotation", False)),
+                  key=lambda e: e.self_device_time_total, reverse=True)
+    device = sum(e.self_device_time_total for e in kern) / 1e3
+    if device == 0:
+        print("[tokenizer train profile] the profiler recorded no device time")
+        return
+    print(f"[tokenizer train profile] one step: {device:.1f} ms of device time in "
+          f"{sum(e.count for e in kern)} kernels, {device / step_ms:.1%} of the "
+          f"{step_ms:.1f} ms median step")
+    for e in kern[:top]:
+        t = e.self_device_time_total / 1e3
+        print(f"[tokenizer train profile] {t:9.3f} ms {t / device:6.1%} x{e.count:<5} {e.key[:90]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this runs on an "
@@ -545,11 +856,17 @@ def main() -> int:
     k3, k4 = phase_flash_bwd(dev)
     phase_compact_train(dev)
     train = phase_train_full_width(dev)
-    kernels = [k1, k2, k3, k4]
+    k5, k6 = phase_lfq_entropy(dev)
+    phase_compact_tokenizer_train(dev)
+    tok_train = phase_tokenizer_train_full_width(dev)
+    kernels = [k1, k2, k3, k4, k5, k6]
     for k in kernels:
-        k["launches"] = train[k["name"]]  # this slice's main path: one training step
-        k["launches_by_path"] = {"train_step": train[k["name"]],
-                                 "rollout": rollout.get(k["name"], 0)}
+        by_path = {"tokenizer_train": tok_train[k["name"]], "train_step": train.get(k["name"], 0),
+                   "rollout": rollout.get(k["name"], 0)}
+        # The newest path that runs the kernel: one tokenizer training step
+        # for K1 and K3 to K6, one Genie training step for K2.
+        k["launches"] = next((c for c in by_path.values() if c > 0), 0)
+        k["launches_by_path"] = by_path
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

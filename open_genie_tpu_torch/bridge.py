@@ -1,14 +1,16 @@
 """Load the JAX package's parameters into the port's modules.
 
 Takes a flax `params` tree (a nested dict of numpy arrays) of a
-`VideoTokenizer`, `LatentAction`, `DynamicsModel` or `Genie` (or of any
-ported module) and builds the matching module's `state_dict`. It is the
-inverse of the layout table in `open_genie_tpu/utils/torch_import.py`:
+`VideoTokenizer`, `LatentAction`, `DynamicsModel`, `Genie` or
+`TokenizerTrainModule` (or of any ported module) and builds the matching
+module's `state_dict`. It is the inverse of the layout table in
+`open_genie_tpu/utils/torch_import.py`:
 
   ====================  =========================  ============================
   module                flax                       torch
   ====================  =========================  ============================
   Conv3d                kernel (kt, kh, kw, I, O)  weight (O, I, kt, kh, kw)
+  Conv2d                kernel (kh, kw, I, O)      weight (O, I, kh, kw)
   ConvTranspose3d       kernel (kt, kh, kw, I, O)  weight (I, O, kt, kh, kw),
                                                    spatial axes flipped
   Dense                 kernel (I, O)              weight (O, I)
@@ -62,6 +64,8 @@ def _leaf(name: str, arr: np.ndarray, transposed: bool) -> Tuple[str, np.ndarray
         return "weight", np.ascontiguousarray(arr.transpose(3, 4, 0, 1, 2)[:, :, ::-1, ::-1, ::-1])
     if name == "kernel" and arr.ndim == 5:
         return "weight", arr.transpose(4, 3, 0, 1, 2)
+    if name == "kernel" and arr.ndim == 4:
+        return "weight", arr.transpose(3, 2, 0, 1)
     if name == "kernel" and arr.ndim == 2:
         return "weight", arr.T
     if name in ("scale", "embedding"):

@@ -1,7 +1,12 @@
 """Model configurations of the port."""
 from __future__ import annotations
 
-from open_genie_tpu_torch.models.blueprints import LATENT_ACT_DEC, LATENT_ACT_ENC
+from open_genie_tpu_torch.models.blueprints import (
+    LATENT_ACT_DEC,
+    LATENT_ACT_ENC,
+    MAGVIT2_DEC_DESC,
+    MAGVIT2_ENC_DESC,
+)
 
 
 def genie_compact_config() -> dict:
@@ -130,4 +135,78 @@ def genie_train_config() -> dict:
             desc=(("space-time_attn", {"n_rep": 6, "n_embd": 512, "n_head": 8, "d_head": 64}),),
             embed_dim=512,
         ),
+    )
+
+
+def tokenizer_train_config() -> dict:
+    """`TokenizerTrainModule` kwargs of the JAX package's tokenizer
+    full-loss benchmark (`bench.py::section_tokenizer_train`, pinned equal
+    by the tests): MAGVIT2 at d=18 (262,144 codes; 64x64 frames compress to
+    an 8x8 grid, 8 frames to 2) with the model's default LFQ weights and
+    remat, a 64-wide frame discriminator with spatial attention (4 heads x
+    32) over 4 frames per video, and the VGG16 perceptual loss."""
+    return dict(
+        tokenizer=dict(enc_desc=MAGVIT2_ENC_DESC, dec_desc=MAGVIT2_DEC_DESC, d_codebook=18),
+        disc_kwargs=dict(
+            inp_size=(64, 64), model_dim=64, dim_mults=(1, 2, 4), down_step=(None, 2, 2),
+            num_groups=8, use_attn=True, num_heads=4, dim_head=32,
+        ),
+        gan_frames_per_batch=4,
+    )
+
+
+def tokenizer_compact_train_config() -> dict:
+    """The compact tokenizer training model of the parity checks: every
+    module kind of `tokenizer_train_config()` (residual blocks with and
+    without a width change, downsamplers in space and in space-time, group
+    and adaptive GroupNorm, SiLU, upsamplers in space and in space-time, a
+    discriminator with attention, the VGG16 taps) at widths 8 to 32, for (B, 4, 32, 32, 3) video: 2 x 8 x 8 tokens
+    per video of a 13-bit codebook, so kernels K5/K6 are on its path."""
+    d = 13
+    return dict(
+        tokenizer=dict(
+            enc_desc=(
+                ("causal-conv3d", {"in_channels": 3, "out_channels": 16, "kernel_size": 3}),
+                ("video-residual", {"n_rep": 1, "in_channels": 16}),
+                ("spacetime_downsample", {
+                    "in_channels": 16, "out_channels": 16, "kernel_size": 3,
+                    "time_factor": 1, "space_factor": 2,
+                }),
+                ("video-residual", {"in_channels": 16, "out_channels": 32}),
+                ("spacetime_downsample", {
+                    "in_channels": 32, "out_channels": 32, "kernel_size": 3,
+                    "time_factor": 2, "space_factor": 2,
+                }),
+                ("video-residual", {"n_rep": 1, "in_channels": 32}),
+                ("group_norm", {"num_groups": 8, "num_channels": 32}),
+                ("silu", {}),
+                ("causal-conv3d", {"in_channels": 32, "out_channels": d, "kernel_size": 1}),
+            ),
+            dec_desc=(
+                ("causal-conv3d", {"in_channels": d, "out_channels": 32, "kernel_size": 3}),
+                ("video-residual", {"n_rep": 1, "in_channels": 32}),
+                ("adaptive_group_norm", {
+                    "dim_cond": d, "num_groups": 8, "num_channels": 32, "has_ext": True,
+                }),
+                ("depth2spacetime_upsample", {
+                    "in_channels": 32, "kernel_size": 3, "time_factor": 2, "space_factor": 2,
+                }),
+                ("adaptive_group_norm", {
+                    "dim_cond": d, "num_groups": 8, "num_channels": 32, "has_ext": True,
+                }),
+                ("video-residual", {"in_channels": 32, "out_channels": 16}),
+                ("depth2spacetime_upsample", {
+                    "in_channels": 16, "kernel_size": 3, "time_factor": 1, "space_factor": 2,
+                }),
+                ("group_norm", {"num_groups": 8, "num_channels": 16}),
+                ("silu", {}),
+                ("causal-conv3d", {"in_channels": 16, "out_channels": 3, "kernel_size": 3}),
+            ),
+            d_codebook=d,
+        ),
+        disc_kwargs=dict(
+            inp_size=(32, 32), model_dim=8, dim_mults=(1, 2, 4), down_step=(None, 2, 2),
+            num_groups=4, use_attn=True, num_heads=2, dim_head=16,
+        ),
+        gan_frames_per_batch=2,
     )

@@ -1,15 +1,20 @@
-"""VideoTokenizer, inference part (twin of `open_genie_tpu.models.tokenizer`).
+"""VideoTokenizer (twin of `open_genie_tpu.models.tokenizer`).
 
-Training the tokenizer is not ported yet; a Genie training step uses it
-frozen (`tokenize_frozen`).
+Encode -> LFQ -> decode, with the LFQ training loss in training mode
+(`forward(..., train=True)`); the rest of the tokenizer's training
+objective is `train.losses.TokenizerTrainModule`. A Genie training step
+uses the tokenizer frozen (`tokenize_frozen`).
 
 Layout `(B, T, H, W, C)` channels-last. Inputs are cast to the model's
-parameter dtype (JAX promotes mixed dtypes; torch refuses them).
+parameter dtype (JAX promotes mixed dtypes; torch refuses them). Layers
+marked `has_ext` take a condition: in the decoder, the quantized latents
+(the MAGVIT2 decoder's adaptive GroupNorms). With `remat` (the default, as
+in the JAX package) every layer recomputes its activations in the backward.
 """
 from __future__ import annotations
 
 from math import prod
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -17,7 +22,7 @@ from torch import nn
 from open_genie_tpu_torch.modules import parse_blueprint
 from open_genie_tpu_torch.modules.quantization import LookupFreeQuantization
 from open_genie_tpu_torch.ops.kernels.lfq_head import lfq_head
-from open_genie_tpu_torch.utils import cast_tuple, last_out_channels, module_dtype
+from open_genie_tpu_torch.utils import cast_tuple, default, last_out_channels, module_dtype
 
 
 def _first_in_channels(blueprint) -> Optional[int]:
@@ -33,36 +38,69 @@ def _first_in_channels(blueprint) -> Optional[int]:
 class VideoTokenizer(nn.Module):
     """Blueprint-assembled video tokenizer with lookup-free quantization."""
 
-    def __init__(self, enc_desc: Any, dec_desc: Any, d_codebook: int = 18,
-                 n_codebook: int = 1):
+    def __init__(
+        self,
+        enc_desc: Any,
+        dec_desc: Any,
+        d_codebook: int = 18,
+        n_codebook: int = 1,
+        lfq_bias: bool = True,
+        lfq_frac_sample: float = 1.0,
+        lfq_commit_weight: float = 0.25,
+        lfq_entropy_weight: float = 0.1,
+        lfq_diversity_weight: float = 1.0,
+        lfq_bit_balance_weight: float = 0.0,
+        remat: bool = True,
+    ):
         super().__init__()
         self.enc_desc, self.dec_desc = enc_desc, dec_desc
         self.d_codebook, self.n_codebook = d_codebook, n_codebook
-        self.enc_layers, enc_ext = parse_blueprint(enc_desc)
-        self.dec_layers, dec_ext = parse_blueprint(dec_desc)
-        if any(enc_ext) or any(dec_ext):
-            raise NotImplementedError(
-                "externally conditioned tokenizer layers (has_ext) are not "
-                "ported yet"
-            )
+        self.enc_layers, self.enc_ext = parse_blueprint(enc_desc, remat=remat)
+        self.dec_layers, self.dec_ext = parse_blueprint(dec_desc, remat=remat)
         last_enc = last_out_channels(enc_desc)
         first_dec = _first_in_channels(dec_desc)
         assert last_enc == first_dec, (
             f"Inconsistent encoder/decoder dimensions: {last_enc} vs {first_dec}"
         )
-        self.quant = LookupFreeQuantization(d_codebook, n_codebook, input_dim=last_enc)
+        self.quant = LookupFreeQuantization(
+            d_codebook, n_codebook, input_dim=last_enc, use_bias=lfq_bias,
+            frac_sample=lfq_frac_sample, commit_weight=lfq_commit_weight,
+            entropy_weight=lfq_entropy_weight, diversity_weight=lfq_diversity_weight,
+            bit_balance_weight=lfq_bit_balance_weight,
+        )
 
-    def encode(self, video: torch.Tensor) -> torch.Tensor:
-        x = video.to(module_dtype(self))
-        for layer in self.enc_layers:
-            x = layer(x)
+    @staticmethod
+    def _run(layers, ext, x: torch.Tensor, cond: Optional[torch.Tensor]) -> torch.Tensor:
+        for layer, has_ext in zip(layers, ext):
+            x = layer(x, cond) if has_ext else layer(x)
         return x
 
-    def decode(self, quant: torch.Tensor) -> torch.Tensor:
-        x = quant.to(module_dtype(self))
-        for layer in self.dec_layers:
-            x = layer(x)
-        return x
+    def encode(self, video: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self._run(self.enc_layers, self.enc_ext, video.to(module_dtype(self)), cond)
+
+    def decode(self, quant: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Run the decoder; `cond` defaults to the quantized latents."""
+        cond = default(cond, quant)
+        return self._run(self.dec_layers, self.dec_ext, quant.to(module_dtype(self)), cond)
+
+    def forward(
+        self,
+        video: torch.Tensor,
+        beta: float = 100.0,
+        train: bool = False,
+        entropy_scale=1.0,
+        bit_balance_scale=1.0,
+    ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Encode -> quantize -> decode: `(rec_video, out)` with `out`
+        holding `quant`, `idxs`, `quant_loss` (None outside `train`) and the
+        LFQ aux terms `lfq_aux`."""
+        enc = self.encode(video)
+        (quant, idxs), quant_loss, aux = self.quant(
+            enc, beta=beta, training=train, entropy_scale=entropy_scale,
+            bit_balance_scale=bit_balance_scale,
+        )
+        rec = self.decode(quant)
+        return rec, {"quant": quant, "idxs": idxs, "quant_loss": quant_loss, "lfq_aux": aux}
 
     @property
     def temporal_downsampling(self) -> int:
@@ -107,9 +145,7 @@ class VideoTokenizer(nn.Module):
     def _tokenize(self, video: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         if not self.head_fusable():
             return self.quant(self.encode(video))[0]
-        x = video.to(module_dtype(self))
-        for layer in self.enc_layers[:-1]:
-            x = layer(x)
+        x = self._run(self.enc_layers[:-1], self.enc_ext[:-1], video.to(module_dtype(self)), None)
         head = self.enc_layers[-1].conv3d
         d, c = head.weight.shape[:2]
         w = head.weight.reshape(d, c).t()

@@ -1,7 +1,8 @@
 """Blueprint registry and parser (twin of `open_genie_tpu.modules`).
 
-Only the module names the rollout and the Genie joint training step use are
-ported; every other name of the JAX registry raises an error saying so.
+Only the module names the rollout, the Genie joint training step and the
+MAGVIT2 tokenizer use are ported; every other name of the JAX registry
+raises an error saying so.
 """
 from __future__ import annotations
 
@@ -13,28 +14,36 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from open_genie_tpu_torch.modules.attention import SpaceTimeAttention
+from open_genie_tpu_torch.modules.image import ImageResidualBlock, SpaceDownsample
+from open_genie_tpu_torch.modules.misc import ACTIVATIONS, Activation
+from open_genie_tpu_torch.modules.norm import AdaptiveGroupNorm, GroupNorm
 from open_genie_tpu_torch.modules.video import (
     CausalConv3d,
     DepthToSpaceTimeUpsample,
     SpaceTimeDownsample,
     SpaceTimeUpsample,
+    VideoResidualBlock,
 )
 from open_genie_tpu_torch.utils import Blueprint
 
 _REGISTRY: Dict[str, Type[nn.Module]] = {
     "space-time_attn": SpaceTimeAttention,
+    "space_downsample": SpaceDownsample,
+    "image-residual": ImageResidualBlock,
+    "video-residual": VideoResidualBlock,
     "causal-conv3d": CausalConv3d,
     "spacetime_downsample": SpaceTimeDownsample,
     "depth2spacetime_upsample": DepthToSpaceTimeUpsample,
     "spacetime_upsample": SpaceTimeUpsample,
+    "group_norm": GroupNorm,
+    "adaptive_group_norm": AdaptiveGroupNorm,
+    **{name: Activation for name in ACTIVATIONS},
 }
 
 # Names the JAX package's registry resolves that this package does not yet.
 _NOT_PORTED = (
-    "space_attn", "time_attn", "blur_pool", "space_downsample",
-    "image-residual", "video-residual", "causal-conv3d-transpose",
+    "space_attn", "time_attn", "blur_pool", "causal-conv3d-transpose",
     "depth2space_upsample", "depth2time_upsample",
-    "group_norm", "adaptive_group_norm", "gelu", "relu", "leaky_relu", "silu",
 )
 
 
@@ -49,9 +58,12 @@ def get_module(name: str) -> Type[nn.Module]:
     raise ValueError(f"Unknown module name: {name}")
 
 
-def _sanitize_kwargs(kwargs: Dict[str, Any]) -> Dict[str, Any]:
-    """YAML-sourced lists -> tuples."""
-    return {k: tuple(v) if isinstance(v, list) else v for k, v in kwargs.items()}
+def _sanitize_kwargs(name: str, kwargs: Dict[str, Any]) -> Dict[str, Any]:
+    """YAML-sourced lists -> tuples; an activation learns its function."""
+    out = {k: tuple(v) if isinstance(v, list) else v for k, v in kwargs.items()}
+    if name in ACTIVATIONS:
+        out["fn"] = name
+    return out
 
 
 class _Remat:
@@ -90,7 +102,7 @@ def parse_blueprint(
         has_ext = bool(kwargs.pop("has_ext", False))
         n_rep = int(kwargs.pop("n_rep", 1))
         cls = remat_class(get_module(name)) if remat else get_module(name)
-        kwargs = _sanitize_kwargs(kwargs)
+        kwargs = _sanitize_kwargs(name, kwargs)
         for _ in range(n_rep):
             layers.append(cls(**kwargs))
             ext.append(has_ext)
@@ -107,6 +119,6 @@ def blueprint_st_factor(blueprint: Blueprint) -> float:
         kwargs.pop("has_ext", None)
         n_rep = int(kwargs.pop("n_rep", 1))
         with torch.device("meta"):
-            layer = get_module(name)(**_sanitize_kwargs(kwargs))
+            layer = get_module(name)(**_sanitize_kwargs(name, kwargs))
         fact *= getattr(layer, "st_factor", 1.0) ** n_rep
     return fact

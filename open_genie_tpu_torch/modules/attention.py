@@ -161,8 +161,9 @@ def _read_only_decode(q, k, v, k_buf, v_buf, cache_pos, scale):
 
 
 class SpatialAttention(nn.Module):
-    """Attention over the `H * W` grid of each frame, batched over (B, T).
-    An optional `(B, H*W, key_dim)` condition cross-attends as keys and
+    """Attention over the `H * W` grid of each frame of a `(B, T, H, W, C)`
+    video, batched over (B, T), or of each `(B, H, W, C)` image. An
+    optional `(B, H*W, key_dim)` condition cross-attends as keys and
     values, repeated over time."""
 
     def __init__(self, n_head, d_head, d_inp, d_out=None, key_dim=None,
@@ -174,6 +175,8 @@ class SpatialAttention(nn.Module):
         )
 
     def forward(self, video: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if video.dim() == 4:
+            return self.forward(video[:, None], cond)[:, 0]
         b, t, h, w, c = video.shape
         if cond is not None:
             cond = cond.repeat_interleave(t, dim=0)  # (B*T, HW, Ck)

@@ -53,15 +53,21 @@ class LookupFreeQuantization(nn.Module):
         x: torch.Tensor,
         beta: float = 100.0,
         training: bool = False,
+        entropy_scale=1.0,
+        bit_balance_scale=1.0,
     ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], Optional[torch.Tensor], Dict[str, torch.Tensor]]:
         """Quantize `(..., d)` features -> `((codes, idxs), loss, aux)`.
 
         Outside training `loss` is None and `aux` empty; in training the
-        codes carry the straight-through gradient and `loss` is the LFQ loss.
+        codes carry the straight-through gradient and `loss` is the LFQ loss
+        against the `where(x > 0, 1, -1)` commitment target, its entropy
+        objective scaled by `entropy_scale` and its bit balance by
+        `bit_balance_scale` (see `ops.lfq.lfq_loss`).
         """
         code, idxs = lfq_quantize(x, self.codebook_dim, training=training)
         if not training:
             return (code, idxs), None, {}
         quant = torch.where(x > 0, 1.0, -1.0).to(x.dtype)
-        loss, aux = lfq_loss(x, quant, beta=beta, **self.loss_kw)
+        loss, aux = lfq_loss(x, quant, beta=beta, num_codebooks=1, entropy_scale=entropy_scale,
+                             bit_balance_scale=bit_balance_scale, **self.loss_kw)
         return (code, idxs), loss, aux

@@ -37,6 +37,18 @@ def conv3d_cl(
     return out.permute(0, 2, 3, 4, 1)
 
 
+def conv2d_cl(
+    x: torch.Tensor,
+    weight: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    stride=1,
+    padding=0,
+) -> torch.Tensor:
+    """`F.conv2d` on a channels-last `(B, H, W, C)` tensor."""
+    out = F.conv2d(x.permute(0, 3, 1, 2), weight, bias, stride=stride, padding=padding)
+    return out.permute(0, 2, 3, 1)
+
+
 def causal_conv3d(
     x: torch.Tensor,
     weight: torch.Tensor,

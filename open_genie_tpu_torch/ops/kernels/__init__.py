@@ -1,9 +1,10 @@
 """Build and load the hand-written CUDA kernels of `csrc/`.
 
-The sources are compiled by `nvcc` for `sm_90a` into one shared library
-with a plain C interface and loaded with `ctypes` (no PyTorch headers, so a
-build takes seconds). The build happens at first use, never at import,
-into `build/torch_kernels/<hash>/` beside the package; the hash covers the
+The sources are compiled by `nvcc` for `sm_90a`, one process per source,
+all started together, and linked into one shared library with a plain C
+interface, loaded with `ctypes` (no PyTorch headers, so a build takes
+seconds). The build happens at first use, never at import, into
+`build/torch_kernels/<hash>/` beside the package; the hash covers the
 sources and the flags, so an unchanged tree reuses its library.
 """
 from __future__ import annotations
@@ -23,7 +24,7 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 _LIB_NAME = "libopen_genie_kernels.so"
 
@@ -40,6 +41,10 @@ _SIGNATURES = {
     "flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     # x, w, b, codes, idx, n, c, d, dtype, stream
     "lfq_head": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, q, n, d, beta, stream
+    "lfq_entropy_fwd": (_P, _P, _I, _I, _F, _P),
+    # x, w, part, dx, n, d, beta, splits, stream
+    "lfq_entropy_bwd": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
 }
 
 
@@ -79,20 +84,25 @@ def _build() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)],
-        capture_output=True, text=True,
-    )
-    BUILD.update(
-        seconds=time.perf_counter() - t0, log=proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD['log']}")
-    os.replace(tmp, out)  # atomic: a reader never sees a half-written library
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(srcs, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [src.name for src, proc in zip(srcs, procs) if proc.returncode != 0]
+        lib = Path(tmp) / _LIB_NAME
+        if not failed:
+            link = subprocess.run([nvcc, "-shared", "-o", str(lib), *map(str, objs)],
+                                  capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            failed = ["link"] if link.returncode != 0 else []
+        BUILD.update(seconds=time.perf_counter() - t0, log="".join(logs))
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{BUILD['log']}")
+        os.replace(lib, out)  # atomic: a reader never sees a half-written library
     BUILD["built"] = True
     return out
 

@@ -1,9 +1,11 @@
 """Lookup-free quantization (twin of `open_genie_tpu.ops.lfq`).
 
 Bit i of a code index is 1 iff feature i is `> 0`, most significant bit
-first. The training losses are ported for codebooks of at most 4096 codes,
-whose batch-averaged entropy takes the direct path; above that the JAX
-package streams over the codebook with kernels K5/K6, not ported yet.
+first. The batch-averaged entropy of a codebook of at most 4096 codes takes
+the direct path; above that it streams over the codebook through
+`LfqAvgEntropy` (kernels K5/K6 on a CUDA tensor, their plain chunked twins
+on a CPU tensor), as the JAX package streams through its Pallas kernels or
+`_lfq_avg_entropy_chunked`.
 
 The entropy terms at beta = 100 cancel two large logits against each other,
 so their products must be true f32: they are written as broadcast sums of
@@ -16,6 +18,8 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from open_genie_tpu_torch.ops.kernels.lfq_entropy import LfqAvgEntropy
 
 # Codebooks up to this many codes take the direct (one-pass) path.
 DIRECT_MAX_CODES = 4096
@@ -85,14 +89,11 @@ def lfq_avg_entropy(
     x: torch.Tensor, beta: float = 100.0, eps: float = 1e-6
 ) -> torch.Tensor:
     """Entropy of the batch-averaged codeword distribution of `(n, d)`
-    features (scalar). Direct path only: more than `DIRECT_MAX_CODES` codes
-    need kernel K5, which is not ported yet."""
+    features (scalar): the direct softmax up to `DIRECT_MAX_CODES` codes,
+    `LfqAvgEntropy` (K5/K6, or their plain twins on the CPU) above."""
     d = x.shape[-1]
     if 2 ** d > DIRECT_MAX_CODES:
-        raise NotImplementedError(
-            f"LFQ average entropy over 2^{d} codes needs kernel K5 "
-            f"(open_genie_tpu/ops/pallas/lfq_entropy.py), not ported yet"
-        )
+        return LfqAvgEntropy.apply(x, float(beta), float(eps))
     q = lfq_avg_probs_direct(x, beta)
     return -(q * torch.log(q.clamp_min(eps))).sum()
 
@@ -132,36 +133,51 @@ def lfq_loss(
     entropy_weight: float = 0.1,
     diversity_weight: float = 1.0,
     frac_sample: float = 1.0,
+    num_codebooks: int = 1,
+    entropy_scale=1.0,
+    bit_balance_scale=1.0,
     bit_balance_weight: float = 0.0,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The LFQ training loss of `(..., d)` pre-quantization features of one
-    codebook: `(loss, aux)`. `quant` is the sign target of the commitment
-    MSE (no gradient). The entropy objective is `sample_entropy -
-    diversity_weight * avg_entropy`; `frac_sample < 1` strides the tokens
-    entering the average entropy. (The JAX package's several codebooks and
-    anneal scales wait for tokenizer training.)
+    """The LFQ training loss of `(..., [c,] d)` pre-quantization features:
+    `(loss, aux)`. `quant` is the sign target of the commitment MSE (no
+    gradient). The entropy objective is `(sample_entropy -
+    diversity_weight * avg_entropy) * entropy_scale`; `frac_sample < 1`
+    strides the tokens entering the average entropy. With `num_codebooks >
+    1` the average entropy and the bit statistics are taken per
+    sub-codebook and averaged. `entropy_scale` and `bit_balance_scale`
+    (floats or scalar tensors) scale the objective only: the aux terms stay
+    unscaled.
     """
     d = x.shape[-1]
     flat = x.reshape(-1, d)
+
+    def per_codebook_mean(fn):
+        if num_codebooks <= 1:
+            return fn(flat)
+        per_cb = x.reshape(-1, num_codebooks, d)
+        return torch.stack([fn(per_cb[:, c]) for c in range(num_codebooks)]).mean()
+
+    def subsample(v):
+        if frac_sample >= 1.0:
+            return v
+        n = v.shape[0]
+        k = max(1, int(n * frac_sample))
+        return v[:: max(1, n // k)][:k]
+
     sample_ent = lfq_sample_entropy(flat, beta)
     commit_loss = ((x.float() - quant.float().detach()) ** 2).mean()
     loss = commit_weight * commit_loss
     aux = {
         "sample_entropy": sample_ent,
         "commit_loss": commit_loss,
-        "bit_entropy": lfq_bit_entropy(flat),
+        "bit_entropy": per_codebook_mean(lfq_bit_entropy),
     }
     if entropy_weight != 0.0:
-        sub = flat
-        if frac_sample < 1.0:
-            n = flat.shape[0]
-            k = max(1, int(n * frac_sample))
-            sub = flat[:: max(1, n // k)][:k]
-        avg_ent = lfq_avg_entropy(sub, beta)
-        loss = loss + entropy_weight * (sample_ent - diversity_weight * avg_ent)
+        avg_ent = per_codebook_mean(lambda v: lfq_avg_entropy(subsample(v), beta))
+        loss = loss + entropy_weight * ((sample_ent - diversity_weight * avg_ent) * entropy_scale)
         aux["avg_entropy"] = avg_ent
     if bit_balance_weight != 0.0:
-        bal = lfq_bit_balance_loss(flat)
-        loss = loss + bit_balance_weight * bal
+        bal = per_codebook_mean(lfq_bit_balance_loss)
+        loss = loss + bit_balance_weight * bal * bit_balance_scale
         aux["bit_balance"] = bal
     return loss, aux

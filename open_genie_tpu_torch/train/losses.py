@@ -1,7 +1,7 @@
 """Training-objective modules (twin of `open_genie_tpu.train.losses`).
 
-Only the Genie joint objective is ported; the tokenizer, latent-action and
-dynamics-only objectives are still to come.
+The tokenizer's full-loss objective and the Genie joint objective are
+ported; the latent-action and dynamics-only objectives are still to come.
 """
 from __future__ import annotations
 
@@ -11,6 +11,97 @@ import torch
 from torch import nn
 
 from open_genie_tpu_torch.models.genie import Genie
+from open_genie_tpu_torch.models.tokenizer import VideoTokenizer
+from open_genie_tpu_torch.modules.loss import GANLoss, PerceptualLoss
+from open_genie_tpu_torch.utils import random_frame_idxs
+
+
+class TokenizerTrainModule(nn.Module):
+    """VideoTokenizer plus its training loss: reconstruction MSE, hinge GAN
+    on picked frames (frame discriminator), VGG16 perceptual loss on picked
+    frames, and the LFQ loss, every term weighted into the total.
+
+    Freeze the VGG in the optimizer with `frozen_param_mask(module,
+    ("perc_crit",))`. The GAN's generator and discriminator terms share one
+    optimizer with exact gradient separation (`GANLoss.both`).
+    """
+
+    def __init__(
+        self,
+        tokenizer: Dict[str, Any],
+        disc_kwargs: Optional[Dict[str, Any]] = None,
+        perceptual_model: str = "vgg16",
+        perc_feat_layers: Tuple[str, ...] = (
+            "features.6", "features.13", "features.18", "features.25"),
+        gan_discriminate: str = "frames",
+        gan_frames_per_batch: int = 4,
+        gan_loss_weight: float = 1.0,
+        perc_loss_weight: float = 1.0,
+        quant_loss_weight: float = 1.0,
+    ):
+        super().__init__()
+        self.model = VideoTokenizer(**tokenizer)
+        self.frames = gan_frames_per_batch
+        self.weights = dict(gan=gan_loss_weight, perc=perc_loss_weight, quant=quant_loss_weight)
+        self.perc_crit = self.gan_crit = None
+        if perc_loss_weight > 0:
+            self.perc_crit = PerceptualLoss(perceptual_model, tuple(perc_feat_layers),
+                                            gan_frames_per_batch)
+        if gan_loss_weight > 0:
+            self.gan_crit = GANLoss(gan_discriminate, gan_frames_per_batch, disc_kwargs)
+
+    def forward(
+        self,
+        video: torch.Tensor,
+        beta: float = 100.0,
+        train: bool = True,
+        gan_branch: str = "both",
+        entropy_scale=1.0,
+        bit_balance_scale=1.0,
+        perc_idxs: Optional[torch.Tensor] = None,
+        gan_idxs: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Full training loss on `(B, T, H, W, C)` video in [0, 1]:
+        `(loss, metrics)`. The frames the perceptual and GAN losses compare
+        are `perc_idxs` / `gan_idxs` `(B, K)`, or drawn from `generator`.
+        `gan_branch` in {'both', 'gen', 'dis'}."""
+        b, t = video.shape[:2]
+        k = min(self.frames, t)
+
+        def idxs(given):
+            if given is not None:
+                return given
+            if generator is None:
+                raise ValueError("TokenizerTrainModule needs frame indices or a Generator")
+            return random_frame_idxs(generator, b, t, k, video.device)
+
+        perc_idxs, gan_idxs = idxs(perc_idxs), idxs(gan_idxs)
+        rec, out = self.model(video, beta=beta, train=train, entropy_scale=entropy_scale,
+                              bit_balance_scale=bit_balance_scale)
+        rec_loss = ((rec.float() - video.float()) ** 2).mean()
+        zero = torch.zeros((), device=video.device)
+        gen_loss = dis_loss = perc_loss = zero
+        if self.gan_crit is not None:
+            if gan_branch == "both":
+                gen_loss, dis_loss = self.gan_crit.both(rec, video, gan_idxs)
+            elif gan_branch in ("gen", "dis"):
+                loss = self.gan_crit(rec, video, gan_idxs, train_gen=gan_branch == "gen")
+                gen_loss, dis_loss = (loss, zero) if gan_branch == "gen" else (zero, loss)
+            else:
+                raise ValueError(f"gan_branch {gan_branch!r} not in both, gen, dis")
+        if self.perc_crit is not None:
+            perc_loss = self.perc_crit(rec, video, perc_idxs)
+        quant_loss = out["quant_loss"] if out["quant_loss"] is not None else zero
+        w = self.weights
+        loss = (rec_loss + gen_loss * w["gan"] + dis_loss * w["gan"] + perc_loss * w["perc"]
+                + quant_loss.float() * w["quant"])
+        metrics = {
+            "loss": loss, "rec_loss": rec_loss, "gen_loss": gen_loss, "dis_loss": dis_loss,
+            "perc_loss": perc_loss, "quant_loss": quant_loss,
+            **{f"lfq_{k}": v for k, v in out["lfq_aux"].items()},
+        }
+        return loss, metrics
 
 
 class GenieTrainModule(nn.Module):

@@ -44,11 +44,18 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
     Dense and conv weights are normal with std `fan_in ** -0.5` (the JAX
     package's lecun-normal, untruncated), embeddings standard normal, norm
-    scales one, biases zero. Used where no trained checkpoint exists (the
-    chip smoke run); parity tests load JAX weights through `bridge.py`.
+    scales one, biases zero. A Linear with a `const_init` attribute
+    `(weight, bias)` is filled with those constants and draws nothing
+    (`AdaptiveGroupNorm`'s heads). Used where no trained checkpoint exists
+    (the chip smoke run); parity tests load JAX weights through `bridge.py`.
     """
     for mod in module.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv3d, nn.ConvTranspose3d)):
+        const = getattr(mod, "const_init", None)
+        if const is not None:
+            mod.weight.fill_(const[0])
+            mod.bias.fill_(const[1])
+            continue
+        if isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
             w = mod.weight  # a transposed conv's is (I, O, *k): fan-in I * k
             fan_in = w.shape[0] * w[0, 0].numel() if isinstance(
                 mod, nn.ConvTranspose3d) else w[0].numel()
@@ -67,3 +74,20 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
 def module_dtype(module: nn.Module) -> torch.dtype:
     """Dtype of a module's first parameter (its compute dtype)."""
     return next(module.parameters()).dtype
+
+
+def pick_frames(video: torch.Tensor, frame_idxs: torch.Tensor) -> torch.Tensor:
+    """`(B * K, H, W, C)` frames of a `(B, T, H, W, C)` video picked by
+    `(B, K)` indices, batch-major."""
+    b, k = frame_idxs.shape
+    rows = torch.arange(b, device=video.device).repeat_interleave(k)
+    return video[rows, frame_idxs.reshape(-1).to(video.device)]
+
+
+def random_frame_idxs(generator: torch.Generator, batch: int, t: int, k: int,
+                      device=None) -> torch.Tensor:
+    """`(batch, k)` distinct frame indices per batch element, drawn from
+    `generator` (on its device), placed on `device`."""
+    idxs = [torch.randperm(t, generator=generator, device=generator.device)[:k]
+            for _ in range(batch)]
+    return torch.stack(idxs).to(device)

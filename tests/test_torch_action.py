@@ -154,8 +154,12 @@ def test_lfq_loss_terms_and_grads(beta):
         np.testing.assert_allclose(aux[k].item(), float(ref_aux[k]), rtol=1e-5, atol=1e-6,
                                    err_msg=k)
     np.testing.assert_allclose(xt.grad.numpy(), np.asarray(ref_grad), **OP_TOL)
-    with pytest.raises(NotImplementedError, match="K5"):
-        tlfq.lfq_avg_entropy(torch.zeros(4, 13))
+    # Above 4096 codes the entropy streams over the codebook (K5/K6's plain
+    # twins on the CPU), as the JAX package's chunked path does.
+    big = _rand(4, 40, 13) * 0.5
+    np.testing.assert_allclose(
+        tlfq.lfq_avg_entropy(torch.from_numpy(big), beta).item(),
+        float(jlfq.lfq_avg_entropy(jnp.asarray(big), beta)), rtol=1e-3)
 
 
 def _small(bp):

@@ -247,9 +247,9 @@ def test_configs_equal_jax_side():
 
 def test_unported_module_names_raise():
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_module("video-residual")
+        get_module("blur_pool")
     with pytest.raises(NotImplementedError, match="not ported"):
-        parse_blueprint((("group_norm", {"num_groups": 8, "num_channels": 8}),))
+        parse_blueprint((("depth2space_upsample", {"in_channels": 8}),))
     with pytest.raises(ValueError, match="Unknown module name"):
         get_module("no-such-module")
     layers, ext = parse_blueprint(

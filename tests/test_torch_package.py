@@ -3,6 +3,7 @@ that fails loudly, and kernel wrappers that never fall back."""
 import os
 import subprocess
 import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -29,6 +30,7 @@ def test_port_imports_without_jax():
         "import open_genie_tpu_torch.bridge\n"
         "import open_genie_tpu_torch.ops.kernels.flash_attention\n"
         "import open_genie_tpu_torch.ops.kernels.lfq_head\n"
+        "import open_genie_tpu_torch.ops.kernels.lfq_entropy\n"
         "import open_genie_tpu_torch.train.losses\n"
         "import open_genie_tpu_torch.train.loop\n"
         "print('ok')\n"
@@ -88,3 +90,32 @@ def test_wrappers_raise_instead_of_falling_back():
         lfq_head(torch.zeros(8, 4), torch.zeros(4, 32), torch.zeros(32))
     with pytest.raises(ValueError, match="contiguous"):
         lfq_head(torch.zeros(4, 8).t(), torch.zeros(4, 3), torch.zeros(3))
+
+
+def test_build_compiles_each_source_apart_then_links(tmp_path, monkeypatch):
+    """One nvcc per source, then one link; the library lands under the
+    hash of sources and flags and is reused."""
+    from open_genie_tpu_torch.ops import kernels
+
+    log = tmp_path / "calls.txt"
+    fake = tmp_path / "nvcc"
+    fake.write_text(textwrap.dedent(f"""\
+        #!{sys.executable}
+        import sys
+        args = sys.argv[1:]
+        open(args[args.index("-o") + 1], "w").write("x")
+        with open({str(log)!r}, "a") as f:
+            f.write(" ".join(a.rsplit("/", 1)[-1] for a in args) + "\\n")
+    """))
+    fake.chmod(0o755)
+    monkeypatch.setattr(kernels, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(kernels, "BUILD_ROOT", tmp_path / "build")
+    out = kernels._build()
+    assert out.exists() and out.parent.parent == tmp_path / "build" and kernels.BUILD["built"]
+    calls = log.read_text().splitlines()
+    compiles, links = calls[:-1], calls[-1]
+    assert sorted(c.split(" -c ")[1].split()[0] for c in compiles) == [
+        s.name for s in kernels.sources()]
+    assert all("-gencode arch=compute_90a,code=sm_90a" in c for c in compiles)
+    assert links.startswith("-shared") and links.count(".o") == len(kernels.sources())
+    assert kernels._build() == out and not kernels.BUILD["built"]  # reused
