@@ -7,51 +7,63 @@ Run from the root of a checkout on a machine with a Hopper card:
 
 Phases, in order (any failure raises and the exit code is non-zero):
   1. device: the card's name and power limit;
-  2. build: the CUDA kernels from `open_genie_tpu_torch/csrc/`;
-  3. kernel K1 (flash-attention forward) against its plain PyTorch twin at
-     the rollout's shapes and at ragged edges, f32 (TF32 off) and bf16,
-     and both times at the rollout's shapes;
+  2. build: the CUDA kernels from `open_genie_tpu_torch/csrc/`, and the
+     registers and spills of the tensor-core flash kernels (none at D <= 64);
+  3. kernel K1 (flash-attention forward) against its plain PyTorch twin:
+     f32 (TF32 off, the CUDA-core variant) at the rollout's shapes and
+     ragged edges; bf16 (the tensor-core variant) at every shape of the
+     three paths, ragged N and D = 128, o and lse, two calls bit-identical;
+     times at the rollout's shapes beside SDPA's flash forward;
   4. kernel K2 (fused LFQ head) against its plain twin, and both times;
   5. the compact rollout model on the card against the same model on the
      CPU (plain twins there), same weights and Gumbel noise, f32;
   6. the full-width rollout (`genie_rollout_config()`, bf16, 64x64 prompt,
      4 frames at 25 MaskGIT steps): output checks, the kernels' launch
-     counts on that run, determinism, and the time per generated frame;
+     counts on that run (every K1 on the tensor cores, at the shapes that
+     phase 3 checked), determinism, and
+     the time per generated frame;
   7. kernels K3 and K4 (flash-attention backward) against the plain
-     backward at the training step's shapes and at ragged edges, f32 (TF32
-     off) and bf16, determinism, and both times;
+     backward: f32 (TF32 off) at the training step's shapes and ragged
+     edges, bf16 at every shape of the paths, two calls bit-identical; then
+     K1, K3 and K4 timed at (512, 256, 64) and (256, 4096, 16) beside the
+     plain twins, PyTorch's flash forward and aten's flash backward, and
+     their bounds;
   8. one compact Genie training step on the card against the same step on
      the CPU (plain twins there): loss, every gradient, and the parameters
      after AdamW, f32;
   9. three full-width Genie training steps (`genie_train_config()`, batch
      4 x 16 frames x 64x64, bf16 compute on f32 weights): finite loss and
      grad norm, a gradient on every trainable parameter, the tokenizer
-     unchanged, the kernels' launch counts per step, ms per step and peak
-     memory;
+     unchanged, the kernels' launch counts per step (every K1 and K3 on the
+     tensor cores, at the shapes that phases 3 and 7 checked), ms per step
+     and peak memory;
  10. kernels K5 and K6 (LFQ entropy over 2^d codes, forward and gradient)
      against their plain twins at d 13 and 18, gentle and trained feature
      scales, ragged token counts; determinism; both times at (512, 18);
      then K1, K3 and K4 at head dim 32 at the frame discriminator's two
-     calls in full, and their times;
+     calls in full, and each one's time beside PyTorch's calls;
  11. one compact tokenizer training step on the card against the same step
      on the CPU: loss, every gradient, the parameters after AdamW, f32;
  12. full-width tokenizer training steps (`tokenizer_train_config()`, the
      JAX benchmark's MAGVIT2 d=18 full-loss step, batch 4 x 8 frames x
      64x64, bf16 on f32 weights): finite loss terms and grad norm, the
-     kernels' launch counts per step, the VGG unchanged; a gradient on
-     every trainable parameter in the first three; the median ms per step
-     of ten more, frames/s and peak memory; one profiled step's device time
-     and its largest ops.
+     kernels' launch counts per step (every K1 and K3 on the tensor
+     cores, at checked shapes), the VGG unchanged; a gradient on every trainable parameter in
+     the first three; the median ms per step of ten more, frames/s and peak
+     memory; one profiled step's device time and its largest ops.
 The line before the last is a JSON summary of the kernels (`launches` on
-one step of the newest path that runs each, and the counts by path); the
-last line is `{"ok": true, "device": {...}}`. Without a CUDA device it
-exits 1 at once.
+one step of the newest path that runs each, and the counts by path; the
+variant, and the kernel's, the plain twin's and the library call's ms
+beside the bound at one shape of the paths); the last line is
+`{"ok": true, "device": {...}}`. Without a CUDA device it exits 1 at once.
 """
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -62,16 +74,92 @@ import torch
 
 HERE = Path(__file__).resolve().parent
 SEED = 0
-K1_TOL_F32, K1_TOL_BF16 = 1e-5, 2e-2  # same f32 math reordered; bf16 rounding
-# K3/K4 against the plain backward on the same inputs: in f32 the same math
-# summed in another order over up to 4096 terms; in bf16 the plain twin
-# rounds p and ds where the kernels do, so what is left is a flip of the
-# last bf16 bit of a rounded term or of the output.
+K1_TOL_F32 = 1e-5  # the same f32 math reordered
+# bf16 K1's lse against the f32 twin on the same bf16 inputs: its logits are
+# exact bf16 products summed in f32, so only the order of the sums and the
+# exp2/log2 rounding are left; K3 and K4 read it.
+K1_LSE_TOL_BF16 = 1e-4
+# K3/K4 against the plain backward on the same inputs in f32: the same math
+# summed in another order over up to 4096 terms.
 K3K4_TOL_F32 = dict(atol=1e-4, rtol=1e-5)
-K3K4_TOL_BF16 = dict(atol=2e-2, rtol=2e-2)
+# A bf16 output of K1, K3 or K4 against the f32 result on the same inputs
+# (the backward's twin rounds p and ds where the kernels do) may differ at
+# each value by BF16_RTOL |ref| + BF16_ATOL_RMS rms(ref) + BF16_ATOL: one
+# to two bf16 ulps of the value (its own rounding is half of one), 1/32 of
+# the output's RMS for p rounded to bf16 and sums taken in another order, and
+# a floor for outputs that cancel to about zero (dk at N = 1). It scales with
+# the output: at N = 4096, where a value is about 0.026, it is about 1e-3,
+# and a kernel that skips one 64-row tile misses by far more
+# (tests/test_torch_smoke_checks.py).
+BF16_RTOL, BF16_ATOL_RMS, BF16_ATOL = 2 ** -7, 2 ** -5, 1e-4
 LFQ_UNDECIDED = 1e-5  # |z| below this is a sign decided by rounding
 PIX_TOL = dict(atol=2e-3, rtol=2e-2)  # the repo's parity bound for stacks
 TOK_TIMED_STEPS = 10  # full-width tokenizer steps timed after the three checked
+# Every (B*H, N, D, causal) that each full-width path gives K1 in bf16 (K3
+# and K4 take those of them that are trained); phases 6, 9 and 12 assert
+# that their paths launch exactly these.
+PATH_CASES = {
+    # dynamics spatial; tokenizer encoder and decoder spatial and temporal.
+    "rollout": [(8, 256, 64, False), (8, 256, 16, False), (40, 256, 16, False),
+                (2048, 1, 16, True), (2048, 5, 16, True)],
+    # latent action spatial at 64x64, 32x32 and 16x16 and temporal; dynamics
+    # spatial and temporal; the frozen tokenizer's spatial and temporal.
+    "train_step": [(256, 4096, 16, False), (256, 1024, 16, False), (256, 256, 16, False),
+                   (65536, 16, 16, True), (16384, 16, 16, True), (4096, 16, 16, True),
+                   (512, 256, 64, False), (8192, 16, 64, True)],
+    # the frame discriminator's two spatial attentions.
+    "tokenizer_train": [(64, 4096, 32, False), (64, 1024, 32, False)],
+}
+# K1 and K3 in bf16 are held to their twins at every path case, then at tile
+# edges, ragged N and D = 128.
+FLASH_BF16_CASES = sorted({c for cases in PATH_CASES.values() for c in cases}) + [
+    (2048, 17, 16, True), (3, 1, 32, True), (8, 17, 16, False), (2, 130, 128, True),
+    (4, 1000, 64, True), (4, 1000, 64, False), (8, 256, 128, False),
+]
+
+
+def bf16_excess(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """The largest |got - ref| of a bf16 output against its f32 reference
+    over what is allowed there (BF16_RTOL, BF16_ATOL_RMS, BF16_ATOL): at
+    most 1 where they agree."""
+    ref = ref.float()
+    allow = (BF16_RTOL * ref.abs() + BF16_ATOL_RMS * ref.pow(2).mean().sqrt() + BF16_ATOL)
+    return ((got.float() - ref).abs() / allow).max().item()
+
+
+# The card's peaks (NVIDIA's H100 SXM data sheet, dense, at 700 W) for the
+# least time the same work could take.
+PEAK_BF16_FLOPS = 989e12   # tensor cores
+PEAK_F32_FLOPS = 67e12     # CUDA cores
+PEAK_HBM_BYTES = 3.35e12
+# Exponentials: 132 SMs x 16 ex2 per clock on the special-function units at
+# the 1.83 GHz of the 989 TFLOP/s figure.
+PEAK_EXP = 132 * 16 * 1.83e9
+
+
+def bound(flops: float, nbytes: float, peak: float, exps: float = 0.0) -> dict:
+    """The least time of a kernel: the larger of its operations over the
+    peak for their type and its bytes (each input read once, each output
+    written once) over the memory rate; beside it, the exponentials' own
+    floor on the special-function units."""
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "exp_floor_ms": exps / PEAK_EXP * 1e3}
+
+
+def flash_bound(kernel: str, bh: int, n: int, d: int, causal: bool = False) -> dict:
+    """`bound` of K1 ("fwd"), K3 ("dkv") or K4 ("dq") on bf16 `(bh, n, d)`:
+    4, 8 or 6 d operations per (query, key) pair that the mask keeps, one
+    exponential each; q, k, v (and dO, lse, delta) read, o and lse (dk and
+    dv, dq) written."""
+    pairs = bh * (n * (n + 1) // 2 if causal else n * n)
+    rows, elt = bh * n, 2
+    flops = {"fwd": 4, "dkv": 8, "dq": 6}[kernel] * d * pairs
+    nbytes = {"fwd": 4 * rows * d * elt + 4 * rows,
+              "dkv": 6 * rows * d * elt + 8 * rows,
+              "dq": 5 * rows * d * elt + 8 * rows}[kernel]
+    return bound(flops, nbytes, PEAK_BF16_FLOPS, exps=pairs)
 
 
 def _import_port():
@@ -83,28 +171,93 @@ def _import_port():
         raise RuntimeError(f"open_genie_tpu_torch imported from {pkg_dir}, not this checkout")
 
 
-def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of `fn` in ms, by CUDA events over `iters` calls."""
-    for _ in range(warmup):
-        fn()
+@functools.lru_cache(maxsize=None)
+def _capture_stream():
+    """The one side stream that CUDA graphs are warmed up and captured on
+    (phase 3 only): each stream keeps a cuBLAS workspace of its own."""
+    return torch.cuda.Stream()
+
+
+def _release_capture_stream() -> None:
+    """Drop the side stream and the cuBLAS workspaces, so that the side
+    stream's adds nothing to a later phase's peak memory."""
+    _capture_stream.cache_clear()
     torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+
+
+def cuda_ms(fn, iters: int = 50, warmup: int = 5, graph: bool = False) -> float:
+    """Mean time of `fn` in ms, by CUDA events over `iters` calls launched
+    one after another; with `graph`, over one replay of a CUDA graph that
+    holds the `iters` calls, which leaves out the host's cost of launching
+    them (what bounds a call of a few microseconds)."""
+    stream = _capture_stream() if graph else torch.cuda.current_stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(iters):
+            fn()
+
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=stream):
+            run()
+        run = g.replay
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    run()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
 
 
-def in_turns(plain, kernel, plain_iters: int = 50) -> tuple:
-    """Times of the plain version and the kernel, run plain, kernel,
-    kernel, plain; each the mean of its two runs."""
-    p1 = cuda_ms(plain, iters=plain_iters, warmup=min(5, plain_iters))
-    k1, k2 = cuda_ms(kernel), cuda_ms(kernel)
-    p2 = cuda_ms(plain, iters=plain_iters, warmup=min(5, plain_iters))
-    return (k1 + k2) / 2, (p1 + p2) / 2
+def in_turns(plain, kernel, plain_iters: int = 50, library=None, iters: int = 50,
+             graph: bool = False) -> dict:
+    """Times of the kernel, its plain version and, where given, one library
+    call that computes the same function: run plain, kernel, kernel, plain,
+    then library, kernel, kernel, library; each the mean of its runs."""
+    def other(fn):
+        return cuda_ms(fn, iters=plain_iters, warmup=min(5, plain_iters), graph=graph)
+
+    def kern():
+        return cuda_ms(kernel, iters, graph=graph)
+
+    p1, k1, k2, p2 = other(plain), kern(), kern(), other(plain)
+    ks, lib = [k1, k2], None
+    if library is not None:
+        l1 = cuda_ms(library, iters, graph=graph)
+        ks += [kern(), kern()]
+        lib = (l1 + cuda_ms(library, iters, graph=graph)) / 2
+    return {"ms": sum(ks) / len(ks), "plain_ms": (p1 + p2) / 2, "library_ms": lib}
+
+
+def sdpa_forward(q, k, v, scale: float, causal: bool):
+    """PyTorch's flash-backend SDPA forward on `(BH, N, D)` tensors: K1's
+    yardstick (`library_ms`). Timed here, called nowhere in the port."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        return torch.nn.functional.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=causal, scale=scale)
+
+
+def aten_flash_backward(q, k, v, do, scale: float, causal: bool):
+    """A call of aten's flash-attention backward, which computes dq, dk and
+    dv together, on the saved forward of aten's flash forward on the same
+    inputs: the yardstick of K3 and K4 (`library_ms`)."""
+    q4, k4, v4, do4 = (t[None] for t in (q, k, v, do))
+    o4, lse4, cq, ck, mq, mk, seed, offset, _ = \
+        torch.ops.aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, causal, False,
+                                                           scale=scale)
+    return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, causal, seed, offset, scale=scale)
 
 
 def phase_device() -> dict:
@@ -127,9 +280,84 @@ def phase_build():
     verb = f"built in {b['seconds']:.1f} s" if b["built"] else "reused"
     print(f"[build] {verb}: {b['path'].relative_to(HERE)} from "
           f"{[str(s.relative_to(HERE)) for s in kernels.sources()]}")
-    for line in b["log"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    # The tensor-core flash kernels, one line per (D, warps) instance; no
+    # spill at the paths' head dims.
+    report = ptxas_report(b["log"])
+    for r in report:
+        print(f"[build] {r['kernel']} D={r['params'][0]} warps={r['params'][1]}: "
+              f"{r['registers']} registers, spills {r['spill_stores']} B stored, "
+              f"{r['spill_loads']} B loaded")
+    assert report, "no ptxas report of the tensor-core kernels"
+    spilled = [r for r in report if r["params"][0] <= 64 and r["spill_stores"] + r["spill_loads"]]
+    assert not spilled, f"tensor-core kernels spill at D <= 64: {spilled}"
+    hmma = _hmma_counts(b["path"])
+    if hmma is None:
+        print("[build] no cuobjdump in the CUDA toolkit: tensor-core instructions not counted")
+        return
+    for kernel in sorted({name for name, _ in hmma}):
+        per = {params: c for (name, params), c in sorted(hmma.items()) if name == kernel}
+        print(f"[build] {kernel}: HMMA (tensor-core) instructions in the SASS of each "
+              f"instance {per}")
+    assert hmma and all(c > 0 for c in hmma.values()), (
+        "a tensor-core flash kernel has no HMMA instruction")
+
+
+# A tensor-core flash kernel instance in a mangled symbol: the kernel's name
+# after its length and its integer template arguments, `<D, warps>`.
+_MMA_INSTANCE = re.compile(r"\d(flash_[a-z_]+_mma_kernel)I((?:Li\d+E)+)")
+
+
+def mma_instance(symbol: str):
+    """`(name, (D, warps))` of a tensor-core flash kernel's symbol, else None."""
+    m = _MMA_INSTANCE.search(symbol)
+    return m and (m.group(1), tuple(int(x) for x in re.findall(r"\d+", m.group(2))))
+
+
+def ptxas_report(log: str) -> list:
+    """Registers and spills of each tensor-core flash kernel instance in an
+    `-Xptxas=-v` log: dicts of `kernel`, `params` (D, warps), `registers`,
+    `spill_stores` and `spill_loads` (bytes)."""
+    report, current = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            inst = mma_instance(m.group(1))
+            current = inst and {"kernel": inst[0], "params": inst[1]}
+            if current:
+                report.append(current)
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            current["spill_stores"], current["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+    return report
+
+
+def _hmma_counts(lib: Path):
+    """HMMA (tensor-core) instructions per tensor-core flash kernel
+    instance in the library's SASS from `cuobjdump -sass`; None where the
+    toolkit has no cuobjdump."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "cuobjdump"
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, key = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            key = mma_instance(m.group(1))
+            if key:
+                counts[key] = 0
+        elif key and "HMMA" in line:
+            counts[key] += 1
+    return counts
 
 
 def phase_flash(dev) -> dict:
@@ -141,49 +369,74 @@ def phase_flash(dev) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(SEED)
-    cases = [(8, 256, 16, False), (8, 256, 64, False), (2048, 5, 16, True),
-             (2048, 17, 16, True), (4, 1000, 64, False), (4, 1000, 64, True)]
+    counts = flash_attention.launches_by_variant
+    # f32: the CUDA-core variant, against the twin in true f32.
     err_f32 = 0.0
-    for bh, n, d, causal in cases:
+    for bh, n, d, causal in [(8, 256, 16, False), (8, 256, 64, False), (2048, 5, 16, True),
+                             (2048, 17, 16, True), (4, 1000, 64, False), (4, 1000, 64, True)]:
         q, k, v = (torch.randn(bh, n, d, generator=g, device=dev) for _ in range(3))
+        simt = counts["simt"]
         o, lse = flash_attention(q, k, v, d ** -0.5, causal)
         o_ref, lse_ref = flash_attention_plain(q, k, v, d ** -0.5, causal)
         e_o = (o - o_ref).abs().max().item()
         e_lse = (lse - lse_ref).abs().max().item()
-        # bf16: against the f32 result on the same bf16-rounded inputs, so
-        # the error is the kernel's own rounding of p and of o.
-        qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
-        ob, _ = flash_attention(qb, kb, vb, d ** -0.5, causal)
-        ob_ref, _ = flash_attention_plain(qb.float(), kb.float(), vb.float(), d ** -0.5, causal)
-        e_b = (ob.float() - ob_ref).abs().max().item()
         torch.cuda.synchronize()
-        print(f"[K1] (BH,N,D)=({bh},{n},{d}) causal={causal}: f32 |do|={e_o:.3g} "
-              f"|dlse|={e_lse:.3g}, bf16 |do|={e_b:.3g}")
+        print(f"[K1] f32 (BH,N,D)=({bh},{n},{d}) causal={causal}: |do|={e_o:.3g} "
+              f"|dlse|={e_lse:.3g}")
         assert e_o <= K1_TOL_F32 and e_lse <= K1_TOL_F32, "K1 f32 disagrees"
-        assert e_b <= K1_TOL_BF16, "K1 bf16 disagrees"
+        assert counts["simt"] == simt + 1, "f32 K1 did not take the CUDA-core variant"
         err_f32 = max(err_f32, e_o, e_lse)
+
+    # bf16: the tensor-core variant at every shape of the paths, against the
+    # f32 result on the same bf16-rounded inputs, so that the error is the
+    # kernel's own rounding of p and of o; two calls bit-identical.
+    err_bf16 = excess_bf16 = 0.0
+    for bh, n, d, causal in FLASH_BF16_CASES:
+        q, k, v = (torch.randn(bh, n, d, generator=g, device=dev).bfloat16() for _ in range(3))
+        mma = counts["mma"]
+        o, lse = flash_attention(q, k, v, d ** -0.5, causal)
+        again = flash_attention(q, k, v, d ** -0.5, causal)
+        o_ref, lse_ref = _by_heads(flash_attention_plain, (q.float(), k.float(), v.float()),
+                                   d ** -0.5, causal)
+        torch.cuda.synchronize()
+        e_o = (o.float() - o_ref).abs().max().item()
+        x_o = bf16_excess(o, o_ref)
+        e_lse = (lse - lse_ref).abs().max().item()
+        same = torch.equal(o, again[0]) and torch.equal(lse, again[1])
+        print(f"[K1] bf16 (BH,N,D)=({bh},{n},{d}) causal={causal}: |do|={e_o:.3g} "
+              f"({x_o:.3g} of its limit) |dlse|={e_lse:.3g}, repeat bit-identical {same}")
+        assert x_o <= 1 and e_lse <= K1_LSE_TOL_BF16, "K1 bf16 disagrees"
+        assert same, "K1 bf16 not deterministic"
+        assert counts["mma"] == mma + 2, "bf16 K1 did not take the tensor-core variant"
+        err_bf16, excess_bf16 = max(err_bf16, e_o), max(excess_bf16, x_o)
+        del q, k, v, o, lse, again, o_ref, lse_ref
 
     # The full-width rollout's calls, in its bf16: dynamics spatial (1 frame
     # x 8 heads, 256 tokens, d 64); tokenizer spatial (1 prompt frame or 5
     # decoded frames x 8 heads, d 16); decoder temporal (256 tubes x 8
-    # heads, 5 frames, causal).
-    timed = {}
+    # heads, 5 frames, causal). Each call takes microseconds, so the three
+    # are timed as CUDA graphs of 50 calls, without the host's launch cost;
+    # the kernel's wrapper called eagerly, one call after another, beside.
     for bh, n, d, causal in [(8, 256, 64, False), (8, 256, 16, False),
                              (40, 256, 16, False), (2048, 5, 16, True)]:
         q, k, v = (torch.randn(bh, n, d, generator=g, device=dev, dtype=torch.bfloat16)
                    for _ in range(3))
-        ms, plain_ms = in_turns(
-            lambda: flash_attention_plain(q, k, v, d ** -0.5, causal),
-            lambda: flash_attention(q, k, v, d ** -0.5, causal),
-        )
-        timed[(bh, n, d, causal)] = (ms, plain_ms)
-        print(f"[K1 time] bf16 (BH,N,D)=({bh},{n},{d}) causal={causal}: "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    ms, plain_ms = timed[(8, 256, 64, False)]
-    return {"name": "flash_attention_fwd", "route": "cuda",
-            "source": "open_genie_tpu_torch/csrc/flash_attention.cu",
+        kernel = lambda: flash_attention(q, k, v, d ** -0.5, causal)  # noqa: E731
+        t = in_turns(lambda: flash_attention_plain(q, k, v, d ** -0.5, causal), kernel,
+                     library=lambda: sdpa_forward(q, k, v, d ** -0.5, causal), graph=True)
+        eager = cuda_ms(kernel)
+        b = flash_bound("fwd", bh, n, d, causal)
+        print(f"[K1 time] bf16 (BH,N,D)=({bh},{n},{d}) causal={causal}, CUDA graphs: kernel "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, SDPA flash forward "
+              f"{t['library_ms']:.4f} ms, bound {b['bound_ms']:.6f} ms ({b['bound_by']}); "
+              f"eager calls of the kernel {eager:.4f} ms each")
+    _release_capture_stream()
+    return {"name": "flash_attention_fwd", "route": "cuda", "variant": "mma",
+            "source": "open_genie_tpu_torch/csrc/flash_attention_mma.cu",
+            "simt_source": "open_genie_tpu_torch/csrc/flash_attention.cu",
             "replaces": "open_genie_tpu/ops/pallas/flash_attention.py:46",
-            "max_abs_err": err_f32, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err_bf16, "max_err_over_limit": excess_bf16,
+            "max_abs_err_f32": err_f32}
 
 
 def phase_lfq(dev) -> dict:
@@ -212,29 +465,38 @@ def phase_lfq(dev) -> dict:
     x = torch.randn(256, 128, generator=g, device=dev, dtype=torch.bfloat16)
     w = torch.randn(128, 10, generator=g, device=dev, dtype=torch.bfloat16)
     b = torch.zeros(10, device=dev, dtype=torch.bfloat16)
-    ms, plain_ms = in_turns(lambda: lfq_head_plain(x, w, b), lambda: lfq_head(x, w, b))
-    print(f"[K2 time] bf16 (N,C,d)=(256,128,10): kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms")
-    return {"name": "lfq_head", "route": "cuda",
+    t = in_turns(lambda: lfq_head_plain(x, w, b), lambda: lfq_head(x, w, b))
+    # x, w, b read, codes (bf16) and packed ids (int32) written; a multiply-add
+    # per (token, channel, bit), in f32 on the CUDA cores.
+    bnd = bound(2 * 256 * 128 * 10, 2 * (256 * 128 + 128 * 10 + 10 + 256 * 10) + 4 * 256,
+                PEAK_F32_FLOPS)
+    print(f"[K2 time] bf16 (N,C,d)=(256,128,10): kernel {t['ms']:.4f} ms, "
+          f"plain {t['plain_ms']:.4f} ms, bound {bnd['bound_ms']:.6f} ms ({bnd['bound_by']})")
+    # No one PyTorch call projects, takes signs and packs them into ids.
+    return {"name": "lfq_head", "route": "cuda", "variant": "simt",
             "source": "open_genie_tpu_torch/csrc/lfq_head.cu",
             "replaces": "open_genie_tpu/ops/pallas/lfq_head.py:37",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": err, **t, **bnd, "shape": [256, 128, 10]}
 
 
 def phase_flash_bwd(dev) -> tuple:
     """K3 and K4 against the plain backward on the same inputs and the
-    same saved forward, at every attention shape of the training step."""
+    same saved forward: f32 at every attention shape of the training step,
+    bf16 at every shape of the paths; determinism; then K1, K3 and K4 timed
+    against their plain twins and PyTorch's flash-attention calls."""
     from open_genie_tpu_torch.ops.kernels.flash_attention import (
         flash_attention,
         flash_attention_bwd,
         flash_attention_bwd_dkv,
         flash_attention_bwd_dq,
         flash_attention_bwd_plain,
+        flash_attention_plain,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    counts = flash_attention_bwd_dkv.launches_by_variant
 
     def inputs(bh, n, d, causal, dtype):
         q, k, v, do = (torch.randn(bh, n, d, generator=g, device=dev).to(dtype)
@@ -242,72 +504,99 @@ def phase_flash_bwd(dev) -> tuple:
         o, lse = flash_attention(q, k, v, d ** -0.5, causal)
         return q, k, v, o, lse, do
 
-    # The training step's calls (B*H, N, D): latent-action spatial at 64x64
-    # and 32x32 (on a slice of B*H: the plain twin's logits at the full 256
-    # would take 17 GB each), its temporal self- and cross-attention (causal),
-    # the dynamics' spatial and temporal calls; then ragged N.
-    cases = [(8, 4096, 16, False), (64, 1024, 16, False), (65536, 16, 16, True),
-             (16384, 16, 16, True), (512, 256, 64, False), (8192, 16, 64, True),
-             (4, 1000, 64, False), (4, 1000, 64, True), (2048, 17, 16, True),
-             (8, 17, 16, False)]
-    err_f32 = 0.0
-    for bh, n, d, causal in cases:
-        errs = {}
-        for dtype, tol in ((torch.float32, K3K4_TOL_F32), (torch.bfloat16, K3K4_TOL_BF16)):
-            q, k, v, o, lse, do = inputs(bh, n, d, causal, dtype)
-            got = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5, causal)
-            ref = flash_attention_bwd_plain(q, k, v, o, lse, do, d ** -0.5, causal)
-            torch.cuda.synchronize()
-            errs[dtype] = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, ref)]
-            ref_max = max(b.float().abs().max().item() for b in ref)
-            for a, b, name in zip(got, ref, ("dq", "dk", "dv")):
+    def check(case, dtype, variant) -> tuple:
+        """Max |error| of dq, dk, dv, and in bf16 each one's share of its
+        limit (`bf16_excess`)."""
+        bh, n, d, causal = case
+        q, k, v, o, lse, do = inputs(bh, n, d, causal, dtype)
+        before = counts[variant]
+        got = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5, causal)
+        again = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5, causal)
+        ref = _by_heads(flash_attention_bwd_plain, (q, k, v, o, lse, do), d ** -0.5, causal)
+        torch.cuda.synchronize()
+        excess = []
+        for a, b, name in zip(got, ref, ("dq", "dk", "dv")):
+            if dtype == torch.float32:
                 torch.testing.assert_close(
-                    a.float(), b.float(), **tol,
-                    msg=lambda m, name=name: f"K3/K4 {name} {(bh, n, d, causal)} {dtype}: {m}",
-                )
-        err_f32 = max(err_f32, *errs[torch.float32])
-        print(f"[K3/K4] (BH,N,D)=({bh},{n},{d}) causal={causal}: max |d(dq,dk,dv)| "
-              f"f32 {[f'{e:.3g}' for e in errs[torch.float32]]}, bf16 "
-              f"{[f'{e:.3g}' for e in errs[torch.bfloat16]]} (max |ref| bf16 {ref_max:.3g})")
+                    a, b, **K3K4_TOL_F32, msg=lambda m, name=name: f"K3/K4 {name} {case}: {m}")
+            else:
+                excess.append(bf16_excess(a, b))
+                assert excess[-1] <= 1, f"K3/K4 {name} {case} bf16: {excess[-1]:.3g} of its limit"
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), f"K3/K4 {case} not deterministic"
+        assert counts[variant] == before + 2, f"{dtype} K3 did not take the {variant} variant"
+        return [(a.float() - b.float()).abs().max().item() for a, b in zip(got, ref)], excess
 
-    q, k, v, o, lse, do = inputs(8, 4096, 16, False, torch.bfloat16)
-    first = flash_attention_bwd(q, k, v, o, lse, do, 0.25, False)
-    again = flash_attention_bwd(q, k, v, o, lse, do, 0.25, False)
-    assert all(torch.equal(a, b) for a, b in zip(first, again)), "K3/K4 not deterministic"
-    print("[K3/K4] two calls at (8,4096,16) bf16: bit-identical dq, dk, dv")
+    # f32 (K3's CUDA-core variant) at the training step's calls (B*H, N, D):
+    # latent-action spatial at 64x64 (a slice of its 256 heads) and 32x32,
+    # its temporal self- and cross-attention (causal), the dynamics' spatial
+    # and temporal calls; then ragged N.
+    err_f32 = 0.0
+    for case in [(8, 4096, 16, False), (64, 1024, 16, False), (65536, 16, 16, True),
+                 (16384, 16, 16, True), (512, 256, 64, False), (8192, 16, 64, True),
+                 (4, 1000, 64, False), (4, 1000, 64, True), (2048, 17, 16, True),
+                 (8, 17, 16, False)]:
+        errs, _ = check(case, torch.float32, "simt")
+        err_f32 = max(err_f32, *errs)
+        print(f"[K3/K4] f32 (BH,N,D,causal)={case}: max |d(dq,dk,dv)| "
+              f"{[f'{e:.3g}' for e in errs]}, repeat bit-identical")
+    # bf16 (K3's tensor-core variant) at every shape of the three paths.
+    err_bf16, excess_bf16 = [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]
+    for case in FLASH_BF16_CASES:
+        errs, excess = check(case, torch.bfloat16, "mma")
+        err_bf16 = [max(a, b) for a, b in zip(err_bf16, errs)]
+        excess_bf16 = [max(a, b) for a, b in zip(excess_bf16, excess)]
+        print(f"[K3/K4] bf16 (BH,N,D,causal)={case}: max |d(dq,dk,dv)| "
+              f"{[f'{e:.3g}' for e in errs]} ({[f'{x:.3g}' for x in excess]} of their "
+              f"limits), repeat bit-identical")
 
-    timed = {}
-    for bh, n, d, causal in [(512, 256, 64, False), (8, 4096, 16, False)]:
-        q, k, v, o, lse, do = inputs(bh, n, d, causal, torch.bfloat16)
+    # Times in bf16 at the dynamics' spatial call and the latent action's
+    # (the plain twins over slices of heads there).
+    rows = {}
+    for bh, n, d, iters in [(512, 256, 64, 50), (256, 4096, 16, 10)]:
+        q, k, v, o, lse, do = inputs(bh, n, d, False, torch.bfloat16)
         delta = (do.float() * o.float()).sum(-1)
         s = d ** -0.5
-        plain = lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, s, causal)  # noqa: E731
-        k3_ms, plain_ms = in_turns(
-            plain, lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, s, causal))
-        k4_ms, plain_ms2 = in_turns(
-            plain, lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, s, causal))
-        timed[(bh, n, d)] = (k3_ms, k4_ms, (plain_ms + plain_ms2) / 2)
-        print(f"[K3/K4 time] bf16 (BH,N,D)=({bh},{n},{d}): K3 {k3_ms:.4f} ms, "
-              f"K4 {k4_ms:.4f} ms, plain backward (dq, dk, dv together) "
-              f"{timed[(bh, n, d)][2]:.4f} ms")
-    # The full latent-action call, kernels alone (the plain twin needs
-    # several 17 GB matrices there).
-    q, k, v, o, lse, do = inputs(256, 4096, 16, False, torch.bfloat16)
-    delta = (do.float() * o.float()).sum(-1)
-    full = (cuda_ms(lambda: flash_attention(q, k, v, 0.25), iters=5, warmup=1),
-            cuda_ms(lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, 0.25), iters=5, warmup=1),
-            cuda_ms(lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, 0.25), iters=5, warmup=1))
-    print(f"[K3/K4 time] bf16 (256,4096,16), kernels alone: K1 {full[0]:.3f} ms, "
-          f"K3 {full[1]:.3f} ms, K4 {full[2]:.3f} ms")
+        big = n * n * bh > 2 ** 27
+        plain_iters = 3 if big else 50
+        plain_fwd = lambda: _by_heads(flash_attention_plain, (q, k, v), s)  # noqa: E731
+        plain_bwd = lambda: _by_heads(flash_attention_bwd_plain, (q, k, v, o, lse, do), s)  # noqa: E731
+        library = aten_flash_backward(q, k, v, do, s, False)
+        t = {"flash_attention_fwd": in_turns(
+                plain_fwd, lambda: flash_attention(q, k, v, s), plain_iters,
+                library=lambda: sdpa_forward(q, k, v, s, False), iters=iters),
+             "flash_attention_bwd_dkv": in_turns(
+                plain_bwd, lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, s),
+                plain_iters, library=library, iters=iters),
+             "flash_attention_bwd_dq": in_turns(
+                plain_bwd, lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, s),
+                plain_iters, library=library, iters=iters)}
+        bounds = {"flash_attention_fwd": flash_bound("fwd", bh, n, d),
+                  "flash_attention_bwd_dkv": flash_bound("dkv", bh, n, d),
+                  "flash_attention_bwd_dq": flash_bound("dq", bh, n, d)}
+        for name, label in (("flash_attention_fwd", "K1"), ("flash_attention_bwd_dkv", "K3"),
+                            ("flash_attention_bwd_dq", "K4")):
+            tt, b = t[name], bounds[name]
+            print(f"[K1/K3/K4 time] bf16 (BH,N,D)=({bh},{n},{d}) {label}: kernel "
+                  f"{tt['ms']:.4f} ms, plain {tt['plain_ms']:.4f} ms, library "
+                  f"{tt['library_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+                  f"exponentials {b['exp_floor_ms']:.4f} ms")
+            rows[name] = {**tt, **b, "shape": [bh, n, d]}
+        del q, k, v, o, lse, do, delta, library
 
-    k3_ms, k4_ms, plain_ms = timed[(512, 256, 64)]
-    common = {"route": "cuda", "source": "open_genie_tpu_torch/csrc/flash_attention_bwd.cu",
-              "max_abs_err": err_f32, "plain_ms": plain_ms,
-              "plain_computes": "dq, dk and dv together", "shape": [512, 256, 64]}
-    return ({"name": "flash_attention_bwd_dkv", **common, "ms": k3_ms,
-             "replaces": "open_genie_tpu/ops/pallas/flash_attention.py:164"},
-            {"name": "flash_attention_bwd_dq", **common, "ms": k4_ms,
-             "replaces": "open_genie_tpu/ops/pallas/flash_attention.py:237"})
+    common = {"route": "cuda", "plain_computes": "dq, dk and dv together",
+              "library_computes": "dq, dk and dv together (aten flash-attention backward)"}
+    return (rows["flash_attention_fwd"],
+            {"name": "flash_attention_bwd_dkv", **common, "variant": "mma",
+             "source": "open_genie_tpu_torch/csrc/flash_attention_bwd_mma.cu",
+             "simt_source": "open_genie_tpu_torch/csrc/flash_attention_bwd.cu",
+             "replaces": "open_genie_tpu/ops/pallas/flash_attention.py:164",
+             "max_abs_err": max(err_bf16[1:]), "max_err_over_limit": max(excess_bf16[1:]),
+             "max_abs_err_f32": err_f32, **rows["flash_attention_bwd_dkv"]},
+            {"name": "flash_attention_bwd_dq", **common, "variant": "simt",
+             "source": "open_genie_tpu_torch/csrc/flash_attention_bwd.cu",
+             "replaces": "open_genie_tpu/ops/pallas/flash_attention.py:237",
+             "max_abs_err": err_bf16[0], "max_err_over_limit": excess_bf16[0],
+             "max_abs_err_f32": err_f32, **rows["flash_attention_bwd_dq"]})
 
 
 def phase_lfq_entropy(dev) -> tuple:
@@ -366,26 +655,38 @@ def phase_lfq_entropy(dev) -> tuple:
     assert same, "K5/K6 not deterministic"
     print("[K5/K6] bf16 features give the f32 result of their values; two calls at "
           "(512,18) bit-identical q and dx")
-    k5_ms, k5_plain = in_turns(lambda: avg_probs_plain(x, 100.0), lambda: lfq_avg_probs(x, 100.0),
-                               plain_iters=5)
-    k6_ms, k6_plain = in_turns(lambda: entropy_grad_plain(x, w, 100.0),
-                               lambda: lfq_entropy_grad(x, w, 100.0), plain_iters=5)
-    print(f"[K5/K6 time] (n,d)=(512,18) f32: K5 {k5_ms:.4f} ms, plain {k5_plain:.4f} ms; "
-          f"K6 {k6_ms:.4f} ms, plain {k6_plain:.4f} ms")
+    k5 = in_turns(lambda: avg_probs_plain(x, 100.0), lambda: lfq_avg_probs(x, 100.0),
+                  plain_iters=5)
+    k6 = in_turns(lambda: entropy_grad_plain(x, w, 100.0), lambda: lfq_entropy_grad(x, w, 100.0),
+                  plain_iters=5)
+    # Per (token, code) pair one exponential and d adds (K5), 3 d with the
+    # per-bit sums (K6), in f32 on the CUDA cores; x and q, or x, w and dx,
+    # cross memory once. No one PyTorch call forms the 2^18 structured
+    # logits and their softmax.
+    pairs = 512 * 2 ** 18
+    k5.update(bound(18 * pairs, 4 * (512 * 18 + 2 ** 18), PEAK_F32_FLOPS, exps=pairs))
+    k6.update(bound(3 * 18 * pairs, 4 * (2 * 512 * 18 + 2 ** 18), PEAK_F32_FLOPS, exps=pairs))
+    print(f"[K5/K6 time] (n,d)=(512,18) f32: K5 {k5['ms']:.4f} ms, plain {k5['plain_ms']:.4f} "
+          f"ms, bound {k5['bound_ms']:.4f} ms ({k5['bound_by']}); K6 {k6['ms']:.4f} ms, plain "
+          f"{k6['plain_ms']:.4f} ms, bound {k6['bound_ms']:.4f} ms ({k6['bound_by']}); "
+          f"exponentials {k5['exp_floor_ms']:.4f} ms each")
     _flash_head_dim_32(dev)
-    common = {"route": "cuda", "source": "open_genie_tpu_torch/csrc/lfq_entropy.cu",
-              "shape": [512, 18]}
+    common = {"route": "cuda", "variant": "simt",
+              "source": "open_genie_tpu_torch/csrc/lfq_entropy.cu", "shape": [512, 18]}
     return ({"name": "lfq_entropy_fwd", **common, "max_abs_err": errs["q"],
-             "max_rel_err": errs["q_rel"], "ms": k5_ms, "plain_ms": k5_plain,
+             "max_rel_err": errs["q_rel"], **k5,
              "replaces": "open_genie_tpu/ops/pallas/lfq_entropy.py:41"},
             {"name": "lfq_entropy_bwd", **common, "max_abs_err": errs["dx"],
-             "min_cos": errs["dx_cos"], "ms": k6_ms, "plain_ms": k6_plain,
+             "min_cos": errs["dx_cos"], **k6,
              "replaces": "open_genie_tpu/ops/pallas/lfq_entropy.py:74"})
 
 
-def _by_heads(fn, tensors, *args, heads: int = 8) -> tuple:
-    """`fn(*tensors, *args)` over slices of `heads` of the leading B*H axis,
-    concatenated: the plain twins' (N, N) logits of a few heads at a time."""
+def _by_heads(fn, tensors, *args) -> tuple:
+    """`fn(*tensors, *args)` over slices of the leading B*H axis with at
+    most 2^27 logits each (8 heads at N = 4096), concatenated: the plain
+    twins' (N, N) matrices of a few heads at a time."""
+    n = tensors[0].shape[1]
+    heads = max(1, 2 ** 27 // (n * n))
     parts = [fn(*(t[i:i + heads] for t in tensors), *args)
              for i in range(0, tensors[0].shape[0], heads)]
     return tuple(torch.cat(p) for p in zip(*parts))
@@ -394,11 +695,14 @@ def _by_heads(fn, tensors, *args, heads: int = 8) -> tuple:
 def _flash_head_dim_32(dev) -> None:
     """K1, K3 and K4 at the frame discriminator's head dim 32, at both of
     its calls in full, (64, 4096, 32) and (64, 1024, 32), f32 and bf16,
-    against the plain twins run over slices of 8 heads; both times on the
-    bf16 tensors at (64, 4096, 32) that were checked."""
+    against the plain twins run over slices of 8 heads; then each timed on
+    the bf16 tensors at (64, 4096, 32) that were checked, beside PyTorch's
+    flash-attention forward and backward."""
     from open_genie_tpu_torch.ops.kernels.flash_attention import (
         flash_attention,
         flash_attention_bwd,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
         flash_attention_bwd_plain,
         flash_attention_plain,
     )
@@ -407,32 +711,44 @@ def _flash_head_dim_32(dev) -> None:
     g = torch.Generator(device=dev).manual_seed(SEED + 10)
     s = 32 ** -0.5
     for bh, n in ((64, 4096), (64, 1024)):
-        for dtype, tol in ((torch.float32, K3K4_TOL_F32), (torch.bfloat16, K3K4_TOL_BF16)):
+        for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do = (torch.randn(bh, n, 32, generator=g, device=dev).to(dtype)
                            for _ in range(4))
             o, lse = flash_attention(q, k, v, s)
-            o_ref, _ = _by_heads(flash_attention_plain, (q.float(), k.float(), v.float()), s)
+            o_ref, lse_ref = _by_heads(flash_attention_plain, (q.float(), k.float(), v.float()), s)
             got = flash_attention_bwd(q, k, v, o, lse, do, s)
             ref = _by_heads(flash_attention_bwd_plain, (q, k, v, o, lse, do), s)
             torch.cuda.synchronize()
             e_o = (o.float() - o_ref).abs().max().item()
+            e_lse = (lse - lse_ref).abs().max().item()
             e_g = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, ref)]
-            print(f"[K1/K3/K4 D=32] (BH,N)=({bh},{n}) {dtype}: |do| {e_o:.3g}, "
-                  f"|d(dq,dk,dv)| {[f'{e:.3g}' for e in e_g]}")
-            assert e_o <= (K1_TOL_F32 if dtype == torch.float32 else K1_TOL_BF16), "K1 D=32"
-            for a, b in zip(got, ref):
-                torch.testing.assert_close(a.float(), b.float(), **tol)
+            print(f"[K1/K3/K4 D=32] (BH,N)=({bh},{n}) {dtype}: |do| {e_o:.3g}, |dlse| "
+                  f"{e_lse:.3g}, |d(dq,dk,dv)| {[f'{e:.3g}' for e in e_g]}")
+            if dtype == torch.float32:
+                assert e_o <= K1_TOL_F32 and e_lse <= K1_TOL_F32, "K1 D=32"
+                for a, b in zip(got, ref):
+                    torch.testing.assert_close(a, b, **K3K4_TOL_F32)
+            else:
+                assert bf16_excess(o, o_ref) <= 1 and e_lse <= K1_LSE_TOL_BF16, "K1 D=32"
+                assert all(bf16_excess(a, b) <= 1 for a, b in zip(got, ref)), "K3/K4 D=32"
             if (n, dtype) == (4096, torch.bfloat16):
                 timed = (q, k, v, o, lse, do)
     q, k, v, o, lse, do = timed
-    k1_ms, k1_plain = in_turns(lambda: _by_heads(flash_attention_plain, (q, k, v), s),
-                               lambda: flash_attention(q, k, v, s), plain_iters=3)
-    bwd_ms, bwd_plain = in_turns(
-        lambda: _by_heads(flash_attention_bwd_plain, (q, k, v, o, lse, do), s),
-        lambda: flash_attention_bwd(q, k, v, o, lse, do, s), plain_iters=3)
-    print(f"[K1/K3/K4 D=32 time] bf16 (64,4096,32): K1 {k1_ms:.3f} ms, plain {k1_plain:.3f} ms; "
-          f"K3 + K4 {bwd_ms:.3f} ms, plain backward {bwd_plain:.3f} ms (plain over 8 slices "
-          f"of 8 heads)")
+    delta = (do.float() * o.float()).sum(-1)
+    plain_bwd = lambda: _by_heads(flash_attention_bwd_plain, (q, k, v, o, lse, do), s)  # noqa: E731
+    library = aten_flash_backward(q, k, v, do, s, False)
+    for label, kind, plain, kernel, lib in (
+            ("K1", "fwd", lambda: _by_heads(flash_attention_plain, (q, k, v), s),
+             lambda: flash_attention(q, k, v, s), lambda: sdpa_forward(q, k, v, s, False)),
+            ("K3", "dkv", plain_bwd,
+             lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, s), library),
+            ("K4", "dq", plain_bwd,
+             lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, s), library)):
+        t, b = in_turns(plain, kernel, 3, library=lib, iters=20), flash_bound(kind, 64, 4096, 32)
+        print(f"[K1/K3/K4 D=32 time] bf16 (64,4096,32) {label}: kernel {t['ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.4f} ms (over 8 slices of 8 heads), library "
+              f"{t['library_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
+              f"exponentials {b['exp_floor_ms']:.4f} ms")
 
 
 def phase_compact_parity(dev):
@@ -487,6 +803,8 @@ def phase_full_width(dev) -> tuple:
     video = genie(prompt, actions, frames, spf, generator=gen())
     torch.cuda.synchronize()
     launches = _read_counts()
+    variants = _assert_path_kernels("full", "rollout")
+    assert variants["flash_attention_fwd"]["mma"] == launches["flash_attention_fwd"]
 
     n_layers = len(genie.dynamics.layers)
     n_tok_attn = sum(1 for m in genie.tokenizer.modules()
@@ -543,10 +861,40 @@ def _counters() -> dict:
 def _reset_counts() -> None:
     for fn in _counters().values():
         fn.launches = 0
+        for variant in getattr(fn, "launches_by_variant", {}):
+            fn.launches_by_variant[variant] = 0
+        if hasattr(fn, "launches_by_shape"):
+            fn.launches_by_shape.clear()
 
 
 def _read_counts() -> dict:
     return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _assert_path_kernels(label: str, path: str, show: bool = True) -> dict:
+    """The bf16 K1 and K3 launches since the last `_reset_counts` all took
+    the tensor-core variant, K1 ran at exactly the shapes `PATH_CASES[path]`
+    and K3 and K4 at some of them: phases 3 and 7 checked every shape that
+    the path launched."""
+    fns = _counters()
+    by_variant = {name: dict(fns[name].launches_by_variant)
+                  for name in ("flash_attention_fwd", "flash_attention_bwd_dkv")}
+    by_shape = {name: dict(fns[name].launches_by_shape)
+                for name in ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                             "flash_attention_bwd_dq")}
+    if show:
+        print(f"[{label}] K1 and K3 launches by variant: {by_variant}")
+        for name, shapes in by_shape.items():
+            print(f"[{label}] {name} launches by (B*H, N, D, causal): {shapes}")
+    for name, c in by_variant.items():
+        assert c["simt"] == 0, f"{label}: a bf16 {name} launch took the CUDA-core variant"
+    cases = set(PATH_CASES[path])
+    assert set(by_shape["flash_attention_fwd"]) == cases, (
+        f"{label}: K1 launched at {sorted(by_shape['flash_attention_fwd'])}, "
+        f"PATH_CASES[{path!r}] lists {sorted(cases)}")
+    backward = set(by_shape["flash_attention_bwd_dkv"]) | set(by_shape["flash_attention_bwd_dq"])
+    assert backward <= cases, f"{label}: K3/K4 launched at {sorted(backward - cases)}, unchecked"
+    return by_variant
 
 
 def phase_compact_train(dev):
@@ -649,6 +997,9 @@ def phase_train_full_width(dev) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         counts = _read_counts()
+        variants = _assert_path_kernels("train", "train_step", show=i == 0)
+        assert variants["flash_attention_fwd"]["mma"] == counts["flash_attention_fwd"]
+        assert variants["flash_attention_bwd_dkv"]["mma"] == counts["flash_attention_bwd_dkv"]
         if i == 0:
             for h in hooks:
                 h.remove()
@@ -779,6 +1130,9 @@ def phase_tokenizer_train_full_width(dev) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         counts = _read_counts()
+        variants = _assert_path_kernels("tokenizer train", "tokenizer_train", show=i == 0)
+        assert variants["flash_attention_fwd"]["mma"] == counts["flash_attention_fwd"]
+        assert variants["flash_attention_bwd_dkv"]["mma"] == counts["flash_attention_bwd_dkv"]
         loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
         assert math.isfinite(loss) and math.isfinite(norm), "non-finite loss or grad_norm"
         assert all(math.isfinite(metrics[k].item()) for k in terms), "a non-finite loss term"
@@ -853,7 +1207,8 @@ def main() -> int:
     k2 = phase_lfq(dev)
     phase_compact_parity(dev)
     rollout = phase_full_width(dev)
-    k3, k4 = phase_flash_bwd(dev)
+    k1_times, k3, k4 = phase_flash_bwd(dev)
+    k1.update(k1_times)
     phase_compact_train(dev)
     train = phase_train_full_width(dev)
     k5, k6 = phase_lfq_entropy(dev)
@@ -867,6 +1222,9 @@ def main() -> int:
         # for K1 and K3 to K6, one Genie training step for K2.
         k["launches"] = next((c for c in by_path.values() if c > 0), 0)
         k["launches_by_path"] = by_path
+        missing = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+                   "plain_ms", "bound_ms", "bound_by", "library_ms", "variant"} - set(k)
+        assert not missing, f"{k['name']} lacks {missing}"
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

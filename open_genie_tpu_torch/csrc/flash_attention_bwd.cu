@@ -1,5 +1,7 @@
-// Flash-attention backward for Hopper (sm_90a): kernels K3 and K4 of the
-// PyTorch port.
+// Flash-attention backward on the CUDA cores (sm_90a): kernel K4 of the
+// PyTorch port for both types, and K3's f32 variant ("simt"). bf16 K3 takes
+// the tensor-core variant in flash_attention_bwd_mma.cu; f32 stays here
+// because the tensor cores would round it (TF32).
 //
 // K3 (flash_bwd_dkv_kernel) replaces
 // open_genie_tpu/ops/pallas/flash_attention.py::_bwd_dkv_kernel and K4
@@ -21,7 +23,8 @@
 // 256 problems of N = 4096 (the latent-action model's spatial attention, D =
 // 16) and 65,536 problems of N = 16 (its temporal attention). The long problems
 // are bound by the O(N^2) recompute on the CUDA cores (no tensor cores yet);
-// the short ones by how few of a block's 64 rows hold work.
+// the short ones by how few of a block's 64 rows hold work. K4 is next to
+// move onto the tensor cores, on K1's and K3's tiles.
 //
 // What the design does about it: the Pallas grid's sequential accumulation
 // axis becomes a loop inside one block. K3 runs one block per (b*h, 64-key
@@ -65,14 +68,16 @@ __device__ __forceinline__ float row_sum(float part) {
   return part;
 }
 
-// K3: dk, dv for one (b*h, 64-key tile), looping over query tiles.
-template <typename T, int D>
+// K3 in f32: dk, dv for one (b*h, 64-key tile), looping over query tiles.
+// In f32 the Pallas kernel's roundings of p and ds to the operand dtype are
+// no-ops.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int n, float scale, bool causal) {
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int n, float scale, bool causal) {
   constexpr int kTileQ = D >= 128 ? 32 : 64;  // keeps the Q/dO tiles at 32 KB
   constexpr int kDimsPerLane = D / kLanesPerRow;
   __shared__ float q_s[kTileQ][D];
@@ -93,8 +98,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < kDimsPerLane; ++i) {
     const size_t off = base + static_cast<size_t>(col) * D + lane + kLanesPerRow * i;
-    k_r[i] = col_ok ? to_f32(k[off]) : 0.f;
-    v_r[i] = col_ok ? to_f32(v[off]) : 0.f;
+    k_r[i] = col_ok ? k[off] : 0.f;
+    v_r[i] = col_ok ? v[off] : 0.f;
     dk_acc[i] = 0.f;
     dv_acc[i] = 0.f;
   }
@@ -106,8 +111,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int i = idx / D, dd = idx % D;
       const bool ok = q0 + i < n;
       const size_t off = base + static_cast<size_t>(q0 + i) * D + dd;
-      q_s[i][dd] = ok ? to_f32(q[off]) : 0.f;
-      do_s[i][dd] = ok ? to_f32(dout[off]) : 0.f;
+      q_s[i][dd] = ok ? q[off] : 0.f;
+      do_s[i][dd] = ok ? dout[off] : 0.f;
     }
     for (int i = tid; i < kTileQ; i += kThreads) {
       const bool ok = q0 + i < n;
@@ -128,11 +133,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int row = q0 + i;
       const bool keep = col_ok && row < n && (!causal || col <= row);
       const float p = keep ? expf(s * scale - lse_s[i]) : 0.f;
-      const float p_c = round_to<T>(p);                       // p.astype(do.dtype)
-      const float ds = round_to<T>(p * (dp - delta_s[i]));   // ds.astype(q.dtype)
+      const float ds = p * (dp - delta_s[i]);
 #pragma unroll
       for (int j = 0; j < kDimsPerLane; ++j) {
-        dv_acc[j] += p_c * do_s[i][lane + kLanesPerRow * j];
+        dv_acc[j] += p * do_s[i][lane + kLanesPerRow * j];
         dk_acc[j] += ds * q_s[i][lane + kLanesPerRow * j];
       }
     }
@@ -142,8 +146,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kDimsPerLane; ++i) {
       const size_t off = base + static_cast<size_t>(col) * D + lane + kLanesPerRow * i;
-      dk[off] = from_f32<T>(scale * dk_acc[i]);
-      dv[off] = from_f32<T>(dv_acc[i]);
+      dk[off] = scale * dk_acc[i];
+      dv[off] = dv_acc[i];
     }
   }
 }
@@ -224,78 +228,84 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
-  void *out0, *out1;  // dk, dv (K3) or dq, unused (K4)
   int bh, n;
   float scale;
   bool causal;
   cudaStream_t stream;
 };
 
+bool valid(const Args& a) {
+  return a.bh > 0 && a.n > 0 && (a.n + kBlockRows - 1) / kBlockRows <= 65535;
+}
+
+dim3 grid_of(const Args& a) { return dim3(a.bh, (a.n + kBlockRows - 1) / kBlockRows); }
+
+template <int D>
+cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
+  flash_bwd_dkv_kernel<D><<<grid_of(a), kThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), a.n, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
-cudaError_t launch(const Args& a, bool dkv) {
-  const dim3 grid(a.bh, (a.n + kBlockRows - 1) / kBlockRows);
-  const T* q = static_cast<const T*>(a.q);
-  const T* k = static_cast<const T*>(a.k);
-  const T* v = static_cast<const T*>(a.v);
-  const T* dout = static_cast<const T*>(a.dout);
-  const float* lse = static_cast<const float*>(a.lse);
-  const float* delta = static_cast<const float*>(a.delta);
-  if (dkv) {
-    flash_bwd_dkv_kernel<T, D><<<grid, kThreads, 0, a.stream>>>(
-        q, k, v, dout, lse, delta, static_cast<T*>(a.out0),
-        static_cast<T*>(a.out1), a.n, a.scale, a.causal);
-  } else {
-    flash_bwd_dq_kernel<T, D><<<grid, kThreads, 0, a.stream>>>(
-        q, k, v, dout, lse, delta, static_cast<T*>(a.out0), a.n, a.scale,
-        a.causal);
-  }
+cudaError_t launch_dq(const Args& a, void* dq) {
+  flash_bwd_dq_kernel<T, D><<<grid_of(a), kThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<T*>(dq), a.n, a.scale, a.causal);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_dim(const Args& a, int d, bool dkv) {
+cudaError_t dispatch_dq(const Args& a, int d, void* dq) {
   switch (d) {
-    case 16: return launch<T, 16>(a, dkv);
-    case 32: return launch<T, 32>(a, dkv);
-    case 64: return launch<T, 64>(a, dkv);
-    case 128: return launch<T, 128>(a, dkv);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-cudaError_t dispatch(const Args& a, int d, int dtype, bool dkv) {
-  if (a.bh <= 0 || a.n <= 0 || (a.n + kBlockRows - 1) / kBlockRows > 65535) {
-    return cudaErrorInvalidValue;
-  }
-  switch (dtype) {
-    case 0: return dispatch_dim<float>(a, d, dkv);
-    case 1: return dispatch_dim<__nv_bfloat16>(a, d, dkv);
+    case 16: return launch_dq<T, 16>(a, dq);
+    case 32: return launch_dq<T, 32>(a, dq);
+    case 64: return launch_dq<T, 64>(a, dq);
+    case 128: return launch_dq<T, 128>(a, dq);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// q, k, v, dout, dk, dv, dq: contiguous (bh, n, d) in the dtype given by
-// `dtype` (0 = float32, 1 = bfloat16); lse, delta: contiguous float32 (bh, n).
-// Each returns the CUDA error of its launch (0 on success).
+// q, k, v, dout, dk, dv: contiguous float32 (bh, n, d); lse, delta:
+// contiguous float32 (bh, n). Returns the CUDA error of its launch (0 on
+// success). bf16 K3 is flash_attention_bwd_dkv_mma.
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
                                        void* dk, void* dv, int bh, int n, int d,
-                                       int dtype, float scale, int causal,
-                                       void* stream) {
-  const Args a{q, k, v, dout, lse, delta, dk, dv, bh, n, scale, causal != 0,
+                                       float scale, int causal, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, bh, n, scale, causal != 0,
                static_cast<cudaStream_t>(stream)};
-  return dispatch(a, d, dtype, true);
+  if (!valid(a)) return cudaErrorInvalidValue;
+  switch (d) {
+    case 16: return launch_dkv<16>(a, dk, dv);
+    case 32: return launch_dkv<32>(a, dk, dv);
+    case 64: return launch_dkv<64>(a, dk, dv);
+    case 128: return launch_dkv<128>(a, dk, dv);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
+// q, k, v, dout, dq: contiguous (bh, n, d) in the dtype given by `dtype`
+// (0 = float32, 1 = bfloat16); lse, delta: contiguous float32 (bh, n).
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
                                       void* dq, int bh, int n, int d, int dtype,
                                       float scale, int causal, void* stream) {
-  const Args a{q, k, v, dout, lse, delta, dq, nullptr, bh, n, scale,
-               causal != 0, static_cast<cudaStream_t>(stream)};
-  return dispatch(a, d, dtype, false);
+  const Args a{q, k, v, dout, lse, delta, bh, n, scale, causal != 0,
+               static_cast<cudaStream_t>(stream)};
+  if (!valid(a)) return cudaErrorInvalidValue;
+  switch (dtype) {
+    case 0: return dispatch_dq<float>(a, d, dq);
+    case 1: return dispatch_dq<__nv_bfloat16>(a, d, dq);
+    default: return cudaErrorInvalidValue;
+  }
 }

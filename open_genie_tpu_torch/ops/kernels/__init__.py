@@ -5,7 +5,8 @@ all started together, and linked into one shared library with a plain C
 interface, loaded with `ctypes` (no PyTorch headers, so a build takes
 seconds). The build happens at first use, never at import, into
 `build/torch_kernels/<hash>/` beside the package; the hash covers the
-sources and the flags, so an unchanged tree reuses its library.
+sources, the headers they include and the flags, so an unchanged tree
+reuses its library.
 """
 from __future__ import annotations
 
@@ -31,12 +32,13 @@ _LIB_NAME = "libopen_genie_kernels.so"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argtypes; every entry returns its cudaError_t as int.
 _SIGNATURES = {
-    # q, k, v, o, lse, bh, n, d, dtype, scale, causal, stream
-    "flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
-    # q, k, v, dout, lse, delta, dk, dv, bh, n, d, dtype, scale, causal, stream
-    "flash_attention_bwd_dkv": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P,
-    ),
+    # f32 (CUDA cores) and bf16 (tensor cores):
+    # q, k, v, o, lse, bh, n, d, scale, causal, stream
+    "flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    "flash_attention_fwd_mma": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # q, k, v, dout, lse, delta, dk, dv, bh, n, d, scale, causal, stream
+    "flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    "flash_attention_bwd_dkv_mma": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # q, k, v, dout, lse, delta, dq, bh, n, d, dtype, scale, causal, stream
     "flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
     # x, w, b, codes, idx, n, c, d, dtype, stream
@@ -49,7 +51,8 @@ _SIGNATURES = {
 
 
 # What the last build found or did: library path, whether nvcc ran, its
-# wall time and its output (ptxas register and shared-memory report).
+# wall time and its output (ptxas register and shared-memory report, kept
+# beside the library for a later process that reuses it).
 BUILD = {"path": None, "built": False, "seconds": 0.0, "log": ""}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -57,6 +60,10 @@ _lib: Optional[ctypes.CDLL] = None
 
 def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -76,12 +83,14 @@ def _nvcc() -> str:
 def _build() -> Path:
     srcs = sources()
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
+    for src in srcs + headers():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     out = BUILD_ROOT / digest.hexdigest()[:16] / _LIB_NAME
+    log = out.with_name("nvcc.log")
     BUILD.update(path=out, built=False)
     if out.exists():
+        BUILD["log"] = log.read_text() if log.exists() else ""
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -102,6 +111,7 @@ def _build() -> Path:
         BUILD.update(seconds=time.perf_counter() - t0, log="".join(logs))
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n{BUILD['log']}")
+        log.write_text(BUILD["log"])
         os.replace(lib, out)  # atomic: a reader never sees a half-written library
     BUILD["built"] = True
     return out

@@ -1,11 +1,17 @@
 """Kernels K1, K3 and K4: flash attention, forward and backward.
 
-K1 (`csrc/flash_attention.cu`) replaces
-`open_genie_tpu/ops/pallas/flash_attention.py::_fwd_kernel`; K3 and K4
-(`csrc/flash_attention_bwd.cu`) replace `_bwd_dkv_kernel` and
-`_bwd_dq_kernel`. Each wrapper dispatches by device: a CPU tensor goes to
-the plain PyTorch twin, a CUDA tensor launches the kernel (or raises), any
-other device raises.
+K1 replaces `open_genie_tpu/ops/pallas/flash_attention.py::_fwd_kernel`,
+K3 `_bwd_dkv_kernel` and K4 `_bwd_dq_kernel`. Each wrapper dispatches by
+device: a CPU tensor goes to the plain PyTorch twin, a CUDA tensor launches
+the kernel (or raises), any other device raises.
+
+K1 and K3 have two variants, chosen by `flash_variant` from the dtype
+before launch: bf16 runs on the tensor cores ("mma",
+`csrc/flash_attention_mma.cu`, `csrc/flash_attention_bwd_mma.cu`), f32 on
+the CUDA cores with true f32 products ("simt", `csrc/flash_attention.cu`,
+`csrc/flash_attention_bwd.cu`). K4 is "simt" for both. Each wrapper counts
+its launches in `launches`, by variant in `launches_by_variant` and by
+`(BH, N, D, causal)` in `launches_by_shape`.
 
 `FlashAttention` ties them into one `torch.autograd.Function` (the JAX
 package's `custom_vjp`): the forward is K1 and saves only
@@ -14,6 +20,7 @@ package's `custom_vjp`): the forward is K1 and saves only
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import Tuple
 
 import torch
@@ -23,8 +30,34 @@ from open_genie_tpu_torch.ops import kernels
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
+VARIANTS = ("mma", "simt")
 _BLOCK_M = 64  # rows per thread block in every kernel (grid y <= 65535 tiles)
 _NEG_BIG = -1e30  # the Pallas kernels' masked logit
+
+
+def flash_variant(dtype: torch.dtype, d: int) -> str:
+    """The variant of K1 and K3 that takes `(BH, N, d)` tensors of `dtype`:
+    "mma" (tensor cores) for bfloat16, "simt" (CUDA cores, true f32
+    products) for float32. Raises for any other dtype or head dim."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    if dtype == torch.bfloat16:
+        return "mma"
+    if dtype == torch.float32:
+        return "simt"
+    raise ValueError(f"flash_attention takes float32 or bfloat16, got {dtype}")
+
+
+def _count(fn, variant: str, q: torch.Tensor, causal: bool) -> None:
+    fn.launches += 1
+    fn.launches_by_variant[variant] += 1
+    fn.launches_by_shape[(*q.shape, bool(causal))] += 1
+
+
+def _aligned(*ts: torch.Tensor) -> None:
+    """The tensor-core kernels copy rows in 16-byte pieces."""
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("flash_attention: the bf16 kernels take 16-byte aligned tensors")
 
 
 def flash_attention_plain(
@@ -78,8 +111,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v on different devices")
     bh, n, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} not in {HEAD_DIMS}")
+    flash_variant(q.dtype, d)
     if bh < 1 or n < 1 or -(-n // _BLOCK_M) > 65535 or bh > 2 ** 31 - 1:
         raise ValueError(f"flash_attention: unsupported shape {tuple(q.shape)}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -109,21 +141,28 @@ def flash_attention(
     if not _on_cuda(q, "flash_attention"):
         return flash_attention_plain(q, k, v, scale, causal)
     bh, n, d = q.shape
+    variant = flash_variant(q.dtype, d)
     lib = kernels.library()
     o = torch.empty_like(q)
     lse = torch.empty(bh, n, dtype=torch.float32, device=q.device)
+    entry = lib.flash_attention_fwd
+    if variant == "mma":
+        _aligned(q, k, v)
+        entry = lib.flash_attention_fwd_mma
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_fwd(
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), bh, n, d, _DTYPES[q.dtype], float(scale),
-            int(causal), torch.cuda.current_stream().cuda_stream,
+            lse.data_ptr(), bh, n, d, float(scale), int(causal),
+            torch.cuda.current_stream().cuda_stream,
         )
-    kernels.check(err, "flash_attention_fwd")
-    flash_attention.launches += 1
+    kernels.check(err, f"flash_attention_fwd ({variant})")
+    _count(flash_attention, variant, q, causal)
     return o, lse
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+flash_attention.launches_by_shape = Counter()
 
 
 def _check_bwd(q, k, v, do, lse, delta) -> None:
@@ -150,21 +189,28 @@ def flash_attention_bwd_dkv(
     if not _on_cuda(q, "flash_attention_bwd_dkv"):
         raise ValueError("flash_attention_bwd_dkv launches on CUDA tensors only")
     bh, n, d = q.shape
+    variant = flash_variant(q.dtype, d)
     lib = kernels.library()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    entry = lib.flash_attention_bwd_dkv
+    if variant == "mma":
+        _aligned(q, k, v, do)
+        entry = lib.flash_attention_bwd_dkv_mma
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_bwd_dkv(
+        err = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            bh, n, d, _DTYPES[q.dtype], float(scale), int(causal),
+            bh, n, d, float(scale), int(causal),
             torch.cuda.current_stream().cuda_stream,
         )
-    kernels.check(err, "flash_attention_bwd_dkv")
-    flash_attention_bwd_dkv.launches += 1
+    kernels.check(err, f"flash_attention_bwd_dkv ({variant})")
+    _count(flash_attention_bwd_dkv, variant, q, causal)
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.launches_by_variant = dict.fromkeys(VARIANTS, 0)
+flash_attention_bwd_dkv.launches_by_shape = Counter()
 
 
 def flash_attention_bwd_dq(
@@ -186,11 +232,13 @@ def flash_attention_bwd_dq(
             torch.cuda.current_stream().cuda_stream,
         )
     kernels.check(err, "flash_attention_bwd_dq")
-    flash_attention_bwd_dq.launches += 1
+    _count(flash_attention_bwd_dq, "simt", q, causal)
     return dq
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.launches_by_variant = {"simt": 0}
+flash_attention_bwd_dq.launches_by_shape = Counter()
 
 
 def flash_attention_bwd(

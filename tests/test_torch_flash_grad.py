@@ -2,8 +2,10 @@
 
 `FlashAttention` (the plain twins of K1, K3 and K4 on a CPU tensor) against
 `jax.grad` of the JAX package's Pallas flash attention in interpret mode,
-on the same numpy inputs; and the plain backward against torch autograd of
-the plain forward. Tolerances: f32 atol 1e-5 / rtol 1e-4 (the same math in
+on the same numpy inputs, at the sequence lengths and head dims that the
+tensor-core kernels' tiles treat differently; the plain backward against
+torch autograd of the plain forward; and the choice of K1's and K3's
+variant from the dtype. Tolerances: f32 atol 1e-5 / rtol 1e-4 (the same math in
 another order); bf16 atol/rtol 2e-2 (rounding of p, ds and the outputs to
 bf16 at slightly different places in the two programs).
 """
@@ -18,12 +20,15 @@ from open_genie_tpu.ops.pallas.flash_attention import flash_attention as jflash 
 from open_genie_tpu_torch.modules.attention import Attention  # noqa: E402
 from open_genie_tpu_torch.ops.attention import dot_product_attention  # noqa: E402
 from open_genie_tpu_torch.ops.kernels.flash_attention import (  # noqa: E402
+    HEAD_DIMS,
+    VARIANTS,
     FlashAttention,
     flash_attention,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
     flash_attention_bwd_plain,
     flash_attention_plain,
+    flash_variant,
 )
 
 torch.set_num_threads(1)
@@ -64,6 +69,51 @@ def test_flash_grads_match_pallas_f32(n, d, causal):
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_out), **F32_TOL)
     for g, r in zip(grads, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), **F32_TOL)
+
+
+# The sequence lengths and head dims that the tensor-core kernels' tiles
+# treat differently: one row, a partial 16-row chunk, exactly one chunk, one
+# past it, one 64-row tile, one past it, two tiles and a ragged third; every
+# head dim. Each (N, D) pair once; causal and dtype alternate so that every
+# N and every D meets both masks and both dtypes.
+_NS, _DS = (1, 5, 16, 17, 64, 65, 130), (16, 32, 64, 128)
+TILE_SHAPES = [
+    (n, d, (a + b) % 2 == 0, "bf16" if (a + b // 2) % 2 else "f32")
+    for a, n in enumerate(_NS) for b, d in enumerate(_DS)
+]
+
+
+@pytest.mark.parametrize("n,d,causal,dtype", TILE_SHAPES)
+def test_plain_twins_match_pallas_at_tile_edges(n, d, causal, dtype):
+    """The plain twins of K1, K3 and K4 (forward and every gradient through
+    `FlashAttention`) against `jax.grad` of the Pallas kernels in interpret
+    mode, on the same inputs, at B*H = 2."""
+    q, k, v, w = _inputs(1000 + 10 * n + d, 1, 2, n, d)
+    tdt, jdt, tol = ((torch.float32, jnp.float32, F32_TOL) if dtype == "f32"
+                     else (torch.bfloat16, jnp.bfloat16, BF16_TOL))
+    out, grads = _port_grads(q, k, v, w, causal, tdt)
+    ref_out, ref = _jax_grads(q, k, v, w, causal, jdt)
+    assert out.dtype == tdt and all(g.dtype == tdt for g in grads)
+    np.testing.assert_allclose(out.detach().float().numpy(), np.asarray(ref_out, np.float32), **tol)
+    for g, r in zip(grads, ref):
+        np.testing.assert_allclose(g.float().numpy(), np.asarray(r, np.float32), **tol)
+
+
+def test_variant_follows_dtype_for_every_head_dim():
+    """bf16 takes the tensor-core variant of K1 and K3, f32 the CUDA-core
+    one, at every head dim; anything else raises before a launch."""
+    for d in HEAD_DIMS:
+        assert flash_variant(torch.bfloat16, d) == "mma"
+        assert flash_variant(torch.float32, d) == "simt"
+    for d in (8, 48, 256):
+        with pytest.raises(ValueError, match="head dim"):
+            flash_variant(torch.bfloat16, d)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_variant(torch.float16, 64)
+    assert set(VARIANTS) == {"mma", "simt"}
+    for fn in (flash_attention, flash_attention_bwd_dkv):
+        assert set(fn.launches_by_variant) == set(VARIANTS)
+    assert set(flash_attention_bwd_dq.launches_by_variant) == {"simt"}
 
 
 def test_flash_grads_match_pallas_bf16():

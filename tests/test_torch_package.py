@@ -94,7 +94,8 @@ def test_wrappers_raise_instead_of_falling_back():
 
 def test_build_compiles_each_source_apart_then_links(tmp_path, monkeypatch):
     """One nvcc per source, then one link; the library lands under the
-    hash of sources and flags and is reused."""
+    hash of sources, headers and flags and is reused, with its build's
+    report."""
     from open_genie_tpu_torch.ops import kernels
 
     log = tmp_path / "calls.txt"
@@ -118,4 +119,34 @@ def test_build_compiles_each_source_apart_then_links(tmp_path, monkeypatch):
         s.name for s in kernels.sources()]
     assert all("-gencode arch=compute_90a,code=sm_90a" in c for c in compiles)
     assert links.startswith("-shared") and links.count(".o") == len(kernels.sources())
+    built_log = kernels.BUILD["log"]
+    kernels.BUILD["log"] = ""
     assert kernels._build() == out and not kernels.BUILD["built"]  # reused
+    assert kernels.BUILD["log"] == built_log  # with the build's report
+
+
+def test_ptxas_report_names_each_kernel_instance():
+    """Registers and spills of each tensor-core flash kernel instance from
+    nvcc's `-Xptxas=-v` output, its name and template arguments read from
+    its mangled symbol; other kernels are left out."""
+    import chip_smoke
+
+    ns = "_GLOBAL__N__beeea5df_26_flash_attention_mma_cu_b3273ed7"
+    log = textwrap.dedent(f"""\
+        ptxas info    : Compiling entry function '_ZN{len(ns)}{ns}20flash_fwd_mma_kernelILi64ELi2EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiifb' for 'sm_90a'
+        ptxas info    : Function properties for _ZN{len(ns)}{ns}20flash_fwd_mma_kernelILi64ELi2EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiifb
+            0 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+        ptxas info    : Used 168 registers, used 1 barriers
+        ptxas info    : Function properties for _ZN47_GLOBAL__N__edab893f_14_lfq_entropy_cu_579610eb23lfq_entropy_grad_reduceILi18EEEvPKfS2_Pfifi
+            0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+        ptxas info    : Used 32 registers, used 0 barriers
+        ptxas info    : Function properties for _ZN{len(ns)}{ns}24flash_bwd_dkv_mma_kernelILi128ELi4EEEvPK13__nv_bfloat16
+            0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+        ptxas info    : Used 255 registers, used 1 barriers
+    """)
+    assert chip_smoke.ptxas_report(log) == [
+        {"kernel": "flash_fwd_mma_kernel", "params": (64, 2), "spill_stores": 12,
+         "spill_loads": 16, "registers": 168},
+        {"kernel": "flash_bwd_dkv_mma_kernel", "params": (128, 4), "spill_stores": 0,
+         "spill_loads": 0, "registers": 255},
+    ]
