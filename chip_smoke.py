@@ -14,7 +14,8 @@ Phases, in order (any failure raises and the exit code is non-zero):
      ragged edges; bf16 (the tensor-core variant) at every shape of the
      three paths, ragged N and D = 128, o and lse, two calls bit-identical;
      times at the rollout's shapes beside SDPA's flash forward;
-  4. kernel K2 (fused LFQ head) against its plain twin, and both times;
+  4. kernel K2 (fused LFQ head) against its plain twin, and both times as
+     CUDA graphs, the eager call beside;
   5. the compact rollout model on the card against the same model on the
      CPU (plain twins there), same weights and Gumbel noise, f32;
   6. the full-width rollout (`genie_rollout_config()`, bf16, 64x64 prompt,
@@ -23,34 +24,42 @@ Phases, in order (any failure raises and the exit code is non-zero):
      phase 3 checked), determinism, and
      the time per generated frame;
   7. kernels K3 and K4 (flash-attention backward) against the plain
-     backward: f32 (TF32 off) at the training step's shapes and ragged
-     edges, bf16 at every shape of the paths, two calls bit-identical; then
-     K1, K3 and K4 timed at (512, 256, 64) and (256, 4096, 16) beside the
-     plain twins, PyTorch's flash forward and aten's flash backward, and
-     their bounds;
+     backward: f32 (TF32 off, the CUDA-core variants) at the training
+     step's shapes and ragged edges, bf16 (the tensor-core variants) at
+     every shape of the paths, two calls bit-identical; then K1, K3 and K4
+     timed at (512, 256, 64) and (256, 4096, 16) beside the plain twins,
+     PyTorch's flash forward and aten's flash backward, and their bounds,
+     and K3 + K4 beside aten's backward;
   8. one compact Genie training step on the card against the same step on
      the CPU (plain twins there): loss, every gradient, and the parameters
      after AdamW, f32;
   9. three full-width Genie training steps (`genie_train_config()`, batch
      4 x 16 frames x 64x64, bf16 compute on f32 weights): finite loss and
      grad norm, a gradient on every trainable parameter, the tokenizer
-     unchanged, the kernels' launch counts per step (every K1 and K3 on the
-     tensor cores, at the shapes that phases 3 and 7 checked), ms per step
-     and peak memory;
+     unchanged, the kernels' launch counts per step (every K1, K3 and K4 on
+     the tensor cores, at the shapes that phases 3 and 7 checked), ms per
+     step and peak memory;
  10. kernels K5 and K6 (LFQ entropy over 2^d codes, forward and gradient)
      against their plain twins at d 13 and 18, gentle and trained feature
-     scales, ragged token counts; determinism; both times at (512, 18);
-     then K1, K3 and K4 at head dim 32 at the frame discriminator's two
-     calls in full, and each one's time beside PyTorch's calls;
+     scales, ragged token counts; determinism; both times at (512, 18) as
+     CUDA graphs, the eager calls beside; then K1, K3 and K4 at head dim 32
+     at the frame discriminator's two calls in full, and each one's time
+     beside PyTorch's calls;
  11. one compact tokenizer training step on the card against the same step
      on the CPU: loss, every gradient, the parameters after AdamW, f32;
  12. full-width tokenizer training steps (`tokenizer_train_config()`, the
      JAX benchmark's MAGVIT2 d=18 full-loss step, batch 4 x 8 frames x
      64x64, bf16 on f32 weights): finite loss terms and grad norm, the
-     kernels' launch counts per step (every K1 and K3 on the tensor
-     cores, at checked shapes), the VGG unchanged; a gradient on every trainable parameter in
-     the first three; the median ms per step of ten more, frames/s and peak
-     memory; one profiled step's device time and its largest ops.
+     kernels' launch counts per step (every K1, K3 and K4 on the tensor
+     cores, at checked shapes), the VGG unchanged; a gradient on every
+     trainable parameter in the first three; the median ms per step of ten
+     more, frames/s and peak memory; one profiled step's device time and
+     its largest ops;
+ 13. K3 and K4 in bf16 at every shape of the two training paths, as CUDA
+     graphs with the eager calls beside: times beside aten's flash backward,
+     the plain backward where it is cheap, the bounds, each path's launches
+     of the shape per step and launches x (time - bound); K4's 16-key tiles
+     against 64-key tiles at N = 16.
 The line before the last is a JSON summary of the kernels (`launches` on
 one step of the newest path that runs each, and the counts by path; the
 variant, and the kernel's, the plain twin's and the library call's ms
@@ -252,12 +261,23 @@ def aten_flash_backward(q, k, v, do, scale: float, causal: bool):
     """A call of aten's flash-attention backward, which computes dq, dk and
     dv together, on the saved forward of aten's flash forward on the same
     inputs: the yardstick of K3 and K4 (`library_ms`)."""
-    q4, k4, v4, do4 = (t[None] for t in (q, k, v, do))
+    # (B*H, N, D) as (B, H, N, D) with H <= 65535, the kernel's grid limit.
+    b = 1
+    while q.shape[0] // b > 65535 or q.shape[0] % b:
+        b *= 2
+    q4, k4, v4, do4 = (t.view(b, -1, *t.shape[1:]) for t in (q, k, v, do))
     o4, lse4, cq, ck, mq, mk, seed, offset, _ = \
         torch.ops.aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, causal, False,
                                                            scale=scale)
     return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
         do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, causal, seed, offset, scale=scale)
+
+
+def _print_backward_sum(label: str, shape, k3: dict, k4: dict) -> None:
+    """K3 + K4 against aten's flash backward, which computes dq, dk and dv
+    in one call: the fair comparison of the port's backward."""
+    print(f"[{label}] bf16 (BH,N,D)={tuple(shape)} K3 + K4: {k3['ms'] + k4['ms']:.4f} ms, "
+          f"aten flash backward (dq, dk, dv) {k3['library_ms']:.4f} ms")
 
 
 def phase_device() -> dict:
@@ -280,11 +300,12 @@ def phase_build():
     verb = f"built in {b['seconds']:.1f} s" if b["built"] else "reused"
     print(f"[build] {verb}: {b['path'].relative_to(HERE)} from "
           f"{[str(s.relative_to(HERE)) for s in kernels.sources()]}")
-    # The tensor-core flash kernels, one line per (D, warps) instance; no
-    # spill at the paths' head dims.
+    # The tensor-core flash kernels, one line per (D, warps[, keys per
+    # tile]) instance; no spill at the paths' head dims.
     report = ptxas_report(b["log"])
     for r in report:
-        print(f"[build] {r['kernel']} D={r['params'][0]} warps={r['params'][1]}: "
+        keys = f" keys={r['params'][2]}" if len(r["params"]) > 2 else ""
+        print(f"[build] {r['kernel']} D={r['params'][0]} warps={r['params'][1]}{keys}: "
               f"{r['registers']} registers, spills {r['spill_stores']} B stored, "
               f"{r['spill_loads']} B loaded")
     assert report, "no ptxas report of the tensor-core kernels"
@@ -303,19 +324,20 @@ def phase_build():
 
 
 # A tensor-core flash kernel instance in a mangled symbol: the kernel's name
-# after its length and its integer template arguments, `<D, warps>`.
+# after its length and its integer template arguments, `<D, warps>` (K4's
+# `<D, warps, keys per tile>`).
 _MMA_INSTANCE = re.compile(r"\d(flash_[a-z_]+_mma_kernel)I((?:Li\d+E)+)")
 
 
 def mma_instance(symbol: str):
-    """`(name, (D, warps))` of a tensor-core flash kernel's symbol, else None."""
+    """`(name, (D, warps, ...))` of a tensor-core flash kernel's symbol, else None."""
     m = _MMA_INSTANCE.search(symbol)
     return m and (m.group(1), tuple(int(x) for x in re.findall(r"\d+", m.group(2))))
 
 
 def ptxas_report(log: str) -> list:
     """Registers and spills of each tensor-core flash kernel instance in an
-    `-Xptxas=-v` log: dicts of `kernel`, `params` (D, warps), `registers`,
+    `-Xptxas=-v` log: dicts of `kernel`, `params` (D, warps, ...), `registers`,
     `spill_stores` and `spill_loads` (bytes)."""
     report, current = [], None
     for line in log.splitlines():
@@ -461,17 +483,22 @@ def phase_lfq(dev) -> dict:
                   f"idx equal on {int(rows.sum())}/{n} decided rows: {same_idx}")
             assert e == 0.0 and same_idx, "K2 disagrees with its plain twin"
             err = max(err, e)
-    # The full-width rollout's call: one 64x64 prompt frame -> 256 tokens.
+    # The full-width rollout's call: one 64x64 prompt frame -> 256 tokens,
+    # a few microseconds: timed as CUDA graphs of 50 calls (the wrapper's
+    # casts of w and b included), the eager call beside.
     x = torch.randn(256, 128, generator=g, device=dev, dtype=torch.bfloat16)
     w = torch.randn(128, 10, generator=g, device=dev, dtype=torch.bfloat16)
     b = torch.zeros(10, device=dev, dtype=torch.bfloat16)
-    t = in_turns(lambda: lfq_head_plain(x, w, b), lambda: lfq_head(x, w, b))
+    t = in_turns(lambda: lfq_head_plain(x, w, b), lambda: lfq_head(x, w, b), graph=True)
+    t["eager_ms"] = cuda_ms(lambda: lfq_head(x, w, b))
+    _release_capture_stream()
     # x, w, b read, codes (bf16) and packed ids (int32) written; a multiply-add
     # per (token, channel, bit), in f32 on the CUDA cores.
     bnd = bound(2 * 256 * 128 * 10, 2 * (256 * 128 + 128 * 10 + 10 + 256 * 10) + 4 * 256,
                 PEAK_F32_FLOPS)
-    print(f"[K2 time] bf16 (N,C,d)=(256,128,10): kernel {t['ms']:.4f} ms, "
-          f"plain {t['plain_ms']:.4f} ms, bound {bnd['bound_ms']:.6f} ms ({bnd['bound_by']})")
+    print(f"[K2 time] bf16 (N,C,d)=(256,128,10), CUDA graphs: kernel {t['ms']:.4f} ms, "
+          f"plain {t['plain_ms']:.4f} ms, bound {bnd['bound_ms']:.6f} ms ({bnd['bound_by']}); "
+          f"eager calls of the kernel {t['eager_ms']:.4f} ms each")
     # No one PyTorch call projects, takes signs and packs them into ids.
     return {"name": "lfq_head", "route": "cuda", "variant": "simt",
             "source": "open_genie_tpu_torch/csrc/lfq_head.cu",
@@ -496,7 +523,8 @@ def phase_flash_bwd(dev) -> tuple:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
-    counts = flash_attention_bwd_dkv.launches_by_variant
+    counts = (flash_attention_bwd_dkv.launches_by_variant,
+              flash_attention_bwd_dq.launches_by_variant)
 
     def inputs(bh, n, d, causal, dtype):
         q, k, v, do = (torch.randn(bh, n, d, generator=g, device=dev).to(dtype)
@@ -509,7 +537,7 @@ def phase_flash_bwd(dev) -> tuple:
         limit (`bf16_excess`)."""
         bh, n, d, causal = case
         q, k, v, o, lse, do = inputs(bh, n, d, causal, dtype)
-        before = counts[variant]
+        before = [c[variant] for c in counts]
         got = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5, causal)
         again = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5, causal)
         ref = _by_heads(flash_attention_bwd_plain, (q, k, v, o, lse, do), d ** -0.5, causal)
@@ -523,10 +551,11 @@ def phase_flash_bwd(dev) -> tuple:
                 excess.append(bf16_excess(a, b))
                 assert excess[-1] <= 1, f"K3/K4 {name} {case} bf16: {excess[-1]:.3g} of its limit"
         assert all(torch.equal(a, b) for a, b in zip(got, again)), f"K3/K4 {case} not deterministic"
-        assert counts[variant] == before + 2, f"{dtype} K3 did not take the {variant} variant"
+        assert [c[variant] for c in counts] == [b + 2 for b in before], (
+            f"{dtype} K3 or K4 did not take the {variant} variant")
         return [(a.float() - b.float()).abs().max().item() for a, b in zip(got, ref)], excess
 
-    # f32 (K3's CUDA-core variant) at the training step's calls (B*H, N, D):
+    # f32 (the CUDA-core variants) at the training step's calls (B*H, N, D):
     # latent-action spatial at 64x64 (a slice of its 256 heads) and 32x32,
     # its temporal self- and cross-attention (causal), the dynamics' spatial
     # and temporal calls; then ragged N.
@@ -539,7 +568,7 @@ def phase_flash_bwd(dev) -> tuple:
         err_f32 = max(err_f32, *errs)
         print(f"[K3/K4] f32 (BH,N,D,causal)={case}: max |d(dq,dk,dv)| "
               f"{[f'{e:.3g}' for e in errs]}, repeat bit-identical")
-    # bf16 (K3's tensor-core variant) at every shape of the three paths.
+    # bf16 (the tensor-core variants) at every shape of the three paths.
     err_bf16, excess_bf16 = [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]
     for case in FLASH_BF16_CASES:
         errs, excess = check(case, torch.bfloat16, "mma")
@@ -581,6 +610,8 @@ def phase_flash_bwd(dev) -> tuple:
                   f"{tt['library_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
                   f"exponentials {b['exp_floor_ms']:.4f} ms")
             rows[name] = {**tt, **b, "shape": [bh, n, d]}
+        _print_backward_sum("K1/K3/K4 time", (bh, n, d), t["flash_attention_bwd_dkv"],
+                            t["flash_attention_bwd_dq"])
         del q, k, v, o, lse, do, delta, library
 
     common = {"route": "cuda", "plain_computes": "dq, dk and dv together",
@@ -592,8 +623,9 @@ def phase_flash_bwd(dev) -> tuple:
              "replaces": "open_genie_tpu/ops/pallas/flash_attention.py:164",
              "max_abs_err": max(err_bf16[1:]), "max_err_over_limit": max(excess_bf16[1:]),
              "max_abs_err_f32": err_f32, **rows["flash_attention_bwd_dkv"]},
-            {"name": "flash_attention_bwd_dq", **common, "variant": "simt",
-             "source": "open_genie_tpu_torch/csrc/flash_attention_bwd.cu",
+            {"name": "flash_attention_bwd_dq", **common, "variant": "mma",
+             "source": "open_genie_tpu_torch/csrc/flash_attention_bwd_dq_mma.cu",
+             "simt_source": "open_genie_tpu_torch/csrc/flash_attention_bwd.cu",
              "replaces": "open_genie_tpu/ops/pallas/flash_attention.py:237",
              "max_abs_err": err_bf16[0], "max_err_over_limit": excess_bf16[0],
              "max_abs_err_f32": err_f32, **rows["flash_attention_bwd_dq"]})
@@ -655,10 +687,15 @@ def phase_lfq_entropy(dev) -> tuple:
     assert same, "K5/K6 not deterministic"
     print("[K5/K6] bf16 features give the f32 result of their values; two calls at "
           "(512,18) bit-identical q and dx")
+    # Each as CUDA graphs (device time without the host's launch of the
+    # wrapper's casts and the kernel), the eager call beside.
     k5 = in_turns(lambda: avg_probs_plain(x, 100.0), lambda: lfq_avg_probs(x, 100.0),
-                  plain_iters=5)
+                  plain_iters=5, graph=True)
     k6 = in_turns(lambda: entropy_grad_plain(x, w, 100.0), lambda: lfq_entropy_grad(x, w, 100.0),
-                  plain_iters=5)
+                  plain_iters=5, graph=True)
+    k5["eager_ms"] = cuda_ms(lambda: lfq_avg_probs(x, 100.0))
+    k6["eager_ms"] = cuda_ms(lambda: lfq_entropy_grad(x, w, 100.0))
+    _release_capture_stream()
     # Per (token, code) pair one exponential and d adds (K5), 3 d with the
     # per-bit sums (K6), in f32 on the CUDA cores; x and q, or x, w and dx,
     # cross memory once. No one PyTorch call forms the 2^18 structured
@@ -666,10 +703,11 @@ def phase_lfq_entropy(dev) -> tuple:
     pairs = 512 * 2 ** 18
     k5.update(bound(18 * pairs, 4 * (512 * 18 + 2 ** 18), PEAK_F32_FLOPS, exps=pairs))
     k6.update(bound(3 * 18 * pairs, 4 * (2 * 512 * 18 + 2 ** 18), PEAK_F32_FLOPS, exps=pairs))
-    print(f"[K5/K6 time] (n,d)=(512,18) f32: K5 {k5['ms']:.4f} ms, plain {k5['plain_ms']:.4f} "
-          f"ms, bound {k5['bound_ms']:.4f} ms ({k5['bound_by']}); K6 {k6['ms']:.4f} ms, plain "
-          f"{k6['plain_ms']:.4f} ms, bound {k6['bound_ms']:.4f} ms ({k6['bound_by']}); "
-          f"exponentials {k5['exp_floor_ms']:.4f} ms each")
+    print(f"[K5/K6 time] (n,d)=(512,18) f32, CUDA graphs: K5 {k5['ms']:.4f} ms, plain "
+          f"{k5['plain_ms']:.4f} ms, bound {k5['bound_ms']:.4f} ms ({k5['bound_by']}); K6 "
+          f"{k6['ms']:.4f} ms, plain {k6['plain_ms']:.4f} ms, bound {k6['bound_ms']:.4f} ms "
+          f"({k6['bound_by']}); exponentials {k5['exp_floor_ms']:.4f} ms each; eager calls "
+          f"K5 {k5['eager_ms']:.4f} ms, K6 {k6['eager_ms']:.4f} ms")
     _flash_head_dim_32(dev)
     common = {"route": "cuda", "variant": "simt",
               "source": "open_genie_tpu_torch/csrc/lfq_entropy.cu", "shape": [512, 18]}
@@ -737,6 +775,7 @@ def _flash_head_dim_32(dev) -> None:
     delta = (do.float() * o.float()).sum(-1)
     plain_bwd = lambda: _by_heads(flash_attention_bwd_plain, (q, k, v, o, lse, do), s)  # noqa: E731
     library = aten_flash_backward(q, k, v, do, s, False)
+    times = {}
     for label, kind, plain, kernel, lib in (
             ("K1", "fwd", lambda: _by_heads(flash_attention_plain, (q, k, v), s),
              lambda: flash_attention(q, k, v, s), lambda: sdpa_forward(q, k, v, s, False)),
@@ -745,10 +784,74 @@ def _flash_head_dim_32(dev) -> None:
             ("K4", "dq", plain_bwd,
              lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, s), library)):
         t, b = in_turns(plain, kernel, 3, library=lib, iters=20), flash_bound(kind, 64, 4096, 32)
+        times[label] = t
         print(f"[K1/K3/K4 D=32 time] bf16 (64,4096,32) {label}: kernel {t['ms']:.4f} ms, "
               f"plain {t['plain_ms']:.4f} ms (over 8 slices of 8 heads), library "
               f"{t['library_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
               f"exponentials {b['exp_floor_ms']:.4f} ms")
+    _print_backward_sum("K1/K3/K4 D=32 time", (64, 4096, 32), times["K3"], times["K4"])
+
+
+def phase_backward_shapes(dev, launches: dict) -> None:
+    """K3 and K4 in bf16 at every shape that the two training paths give
+    them, beside aten's flash backward (dq, dk and dv in one call), the
+    plain backward where one slice of at most 2^27 logits holds it, the
+    bounds, and each path's launches of the shape per step (`launches`:
+    path -> kernel -> shape -> count, from phases 9 and 12). Times are CUDA
+    graphs (device time), the eager calls beside; the short problems also
+    time K4 with 64-key tiles against its choice of 16."""
+    from open_genie_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    for case in PATH_CASES["train_step"] + PATH_CASES["tokenizer_train"]:
+        bh, n, d, causal = case
+        q, k, v, do = (torch.randn(bh, n, d, generator=g, device=dev, dtype=torch.bfloat16)
+                       for _ in range(4))
+        s = d ** -0.5
+        o, lse = flash_attention(q, k, v, s, causal)
+        delta = (do.float() * o.float()).sum(-1)
+        fns = {"K3": lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, s, causal),
+               "K4": lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, s, causal),
+               "aten": aten_flash_backward(q, k, v, do, s, causal)}
+        if n <= 16:
+            fns["K4, 64-key tiles"] = lambda: flash_attention_bwd_dq(
+                q, k, v, do, lse, delta, s, causal, key_tile=64)
+        if bh * n * n <= 2 ** 27:
+            fns["plain"] = lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, s, causal)
+        iters = 10 if bh * n * n > 2 ** 30 else 50
+        # In turns: each name once forward, once backward; the mean of both.
+        order = list(fns) + list(fns)[::-1]
+        runs = {name: [] for name in fns}
+        for name in order:
+            runs[name].append(cuda_ms(fns[name], iters, graph=True))
+        ms = {name: sum(r) / len(r) for name, r in runs.items()}
+        eager = {name: cuda_ms(fns[name], iters) for name in ("K3", "K4", "aten")}
+        _release_capture_stream()
+        b3, b4 = flash_bound("dkv", bh, n, d, causal), flash_bound("dq", bh, n, d, causal)
+        per_step = {path: [launches[path][name].get(case, 0)
+                           for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")]
+                    for path in ("train_step", "tokenizer_train")}
+        gap = {path: (c3 * (ms["K3"] - b3["bound_ms"]), c4 * (ms["K4"] - b4["bound_ms"]))
+               for path, (c3, c4) in per_step.items()}
+        extra = "".join(f", {name} {ms[name]:.4f} ms" for name in fns
+                        if name not in ("K3", "K4", "aten"))
+        print(f"[backward shapes] bf16 (BH,N,D,causal)={case}, CUDA graphs: K3 {ms['K3']:.4f} "
+              f"ms, K4 {ms['K4']:.4f} ms, K3 + K4 {ms['K3'] + ms['K4']:.4f} ms, aten flash "
+              f"backward {ms['aten']:.4f} ms{extra}; eager K3 {eager['K3']:.4f}, K4 "
+              f"{eager['K4']:.4f}, aten {eager['aten']:.4f} ms; bound K3 {b3['bound_ms']:.5f} "
+              f"({b3['bound_by']}), K4 {b4['bound_ms']:.5f} ({b4['bound_by']}), exponentials "
+              f"{b4['exp_floor_ms']:.5f} ms each; launches (K3, K4) per Genie step "
+              f"{tuple(per_step['train_step'])}, per tokenizer step "
+              f"{tuple(per_step['tokenizer_train'])}; launches x (ms - bound) (K3, K4) per "
+              f"Genie step ({gap['train_step'][0]:.3f}, {gap['train_step'][1]:.3f}) ms, per "
+              f"tokenizer step ({gap['tokenizer_train'][0]:.3f}, "
+              f"{gap['tokenizer_train'][1]:.3f}) ms")
+        del q, k, v, do, o, lse, delta, fns
 
 
 def phase_compact_parity(dev):
@@ -871,19 +974,26 @@ def _read_counts() -> dict:
     return {name: fn.launches for name, fn in _counters().items()}
 
 
-def _assert_path_kernels(label: str, path: str, show: bool = True) -> dict:
-    """The bf16 K1 and K3 launches since the last `_reset_counts` all took
-    the tensor-core variant, K1 ran at exactly the shapes `PATH_CASES[path]`
-    and K3 and K4 at some of them: phases 3 and 7 checked every shape that
-    the path launched."""
+_FLASH = ("flash_attention_fwd", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+
+
+def _read_shapes() -> dict:
+    """Launches of K1, K3 and K4 by (B*H, N, D, causal) since the last
+    `_reset_counts`."""
     fns = _counters()
-    by_variant = {name: dict(fns[name].launches_by_variant)
-                  for name in ("flash_attention_fwd", "flash_attention_bwd_dkv")}
-    by_shape = {name: dict(fns[name].launches_by_shape)
-                for name in ("flash_attention_fwd", "flash_attention_bwd_dkv",
-                             "flash_attention_bwd_dq")}
+    return {name: dict(fns[name].launches_by_shape) for name in _FLASH}
+
+
+def _assert_path_kernels(label: str, path: str, show: bool = True) -> dict:
+    """The bf16 K1, K3 and K4 launches since the last `_reset_counts` all
+    took the tensor-core variant, K1 ran at exactly the shapes
+    `PATH_CASES[path]` and K3 and K4 at some of them: phases 3 and 7
+    checked every shape that the path launched."""
+    fns = _counters()
+    by_variant = {name: dict(fns[name].launches_by_variant) for name in _FLASH}
+    by_shape = _read_shapes()
     if show:
-        print(f"[{label}] K1 and K3 launches by variant: {by_variant}")
+        print(f"[{label}] K1, K3 and K4 launches by variant: {by_variant}")
         for name, shapes in by_shape.items():
             print(f"[{label}] {name} launches by (B*H, N, D, causal): {shapes}")
     for name, c in by_variant.items():
@@ -996,10 +1106,9 @@ def phase_train_full_width(dev) -> dict:
         metrics = step(video, generator=gen)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        counts = _read_counts()
+        counts, shapes = _read_counts(), _read_shapes()
         variants = _assert_path_kernels("train", "train_step", show=i == 0)
-        assert variants["flash_attention_fwd"]["mma"] == counts["flash_attention_fwd"]
-        assert variants["flash_attention_bwd_dkv"]["mma"] == counts["flash_attention_bwd_dkv"]
+        assert all(variants[name]["mma"] == counts[name] for name in _FLASH)
         if i == 0:
             for h in hooks:
                 h.remove()
@@ -1024,7 +1133,7 @@ def phase_train_full_width(dev) -> dict:
     print(f"[train] tokenizer parameters bit-unchanged after 3 steps; "
           f"{(times[1] + times[2]) / 2 * 1e3:.1f} ms per step (mean of steps 1-2, "
           f"step 0 {times[0] * 1e3:.1f} ms); peak memory {peak:.2f} GiB")
-    return counts
+    return counts, shapes
 
 
 def phase_compact_tokenizer_train(dev):
@@ -1129,10 +1238,9 @@ def phase_tokenizer_train_full_width(dev) -> dict:
         metrics = step(video, generator=gen)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        counts = _read_counts()
+        counts, shapes = _read_counts(), _read_shapes()
         variants = _assert_path_kernels("tokenizer train", "tokenizer_train", show=i == 0)
-        assert variants["flash_attention_fwd"]["mma"] == counts["flash_attention_fwd"]
-        assert variants["flash_attention_bwd_dkv"]["mma"] == counts["flash_attention_bwd_dkv"]
+        assert all(variants[name]["mma"] == counts[name] for name in _FLASH)
         loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
         assert math.isfinite(loss) and math.isfinite(norm), "non-finite loss or grad_norm"
         assert all(math.isfinite(metrics[k].item()) for k in terms), "a non-finite loss term"
@@ -1165,7 +1273,7 @@ def phase_tokenizer_train_full_width(dev) -> dict:
           f"{len(times) - 1}, min {timed[0]:.1f}, max {timed[-1]:.1f}; step 0 "
           f"{times[0] * 1e3:.1f} ms); peak memory {peak:.2f} GiB")
     _profile_step(step, video, gen, ms)
-    return counts
+    return counts, shapes
 
 
 def _profile_step(step, video, gen, step_ms: float, top: int = 10) -> None:
@@ -1210,10 +1318,11 @@ def main() -> int:
     k1_times, k3, k4 = phase_flash_bwd(dev)
     k1.update(k1_times)
     phase_compact_train(dev)
-    train = phase_train_full_width(dev)
+    train, train_shapes = phase_train_full_width(dev)
     k5, k6 = phase_lfq_entropy(dev)
     phase_compact_tokenizer_train(dev)
-    tok_train = phase_tokenizer_train_full_width(dev)
+    tok_train, tok_shapes = phase_tokenizer_train_full_width(dev)
+    phase_backward_shapes(dev, {"train_step": train_shapes, "tokenizer_train": tok_shapes})
     kernels = [k1, k2, k3, k4, k5, k6]
     for k in kernels:
         by_path = {"tokenizer_train": tok_train[k["name"]], "train_step": train.get(k["name"], 0),

@@ -1,7 +1,8 @@
-// Flash-attention backward on the CUDA cores (sm_90a): kernel K4 of the
-// PyTorch port for both types, and K3's f32 variant ("simt"). bf16 K3 takes
-// the tensor-core variant in flash_attention_bwd_mma.cu; f32 stays here
-// because the tensor cores would round it (TF32).
+// Flash-attention backward on the CUDA cores (sm_90a): the f32 variants
+// ("simt") of kernels K3 and K4 of the PyTorch port. bf16 takes the
+// tensor-core variants, K3 in flash_attention_bwd_mma.cu and K4 in
+// flash_attention_bwd_dq_mma.cu; f32 stays here because the tensor cores
+// would round it (TF32).
 //
 // K3 (flash_bwd_dkv_kernel) replaces
 // open_genie_tpu/ops/pallas/flash_attention.py::_bwd_dkv_kernel and K4
@@ -10,21 +11,18 @@
 // gradient from the forward's saved (q, k, v, o, lse):
 //
 //   p_ij  = exp(scale * q_i.k_j - lse_i)   recomputed, masked logits -1e30
-//   dv_j  = sum_i p_ij dO_i                 p rounded to dO's dtype first
-//   ds_ij = p_ij (dO_i.v_j - delta_i)       rounded to the operand dtype
+//   dv_j  = sum_i p_ij dO_i
+//   ds_ij = p_ij (dO_i.v_j - delta_i)
 //   dk_j  = scale * sum_i ds_ij q_i
 //   dq_i  = scale * sum_j ds_ij k_j
 //
-// with delta_i = rowsum(dO_i * o_i) in f32 computed by the caller, f32
-// accumulation, and dq, dk, dv written in q's dtype. Causal means key <= query;
-// ragged N is masked inside the kernels, never padded.
+// with delta_i = rowsum(dO_i * o_i) computed by the caller, f32 throughout
+// (the Pallas kernels' roundings of p and ds to the operand dtype are no-ops
+// in f32). Causal means key <= query; ragged N is masked inside the kernels,
+// never padded.
 //
-// What bounds them on this card: the training step gives them two extremes,
-// 256 problems of N = 4096 (the latent-action model's spatial attention, D =
-// 16) and 65,536 problems of N = 16 (its temporal attention). The long problems
-// are bound by the O(N^2) recompute on the CUDA cores (no tensor cores yet);
-// the short ones by how few of a block's 64 rows hold work. K4 is next to
-// move onto the tensor cores, on K1's and K3's tiles.
+// What bounds them on this card: the O(N^2) recompute on the CUDA cores at
+// 67 TFLOP/s f32; the training paths run in bf16 and do not reach them.
 //
 // What the design does about it: the Pallas grid's sequential accumulation
 // axis becomes a loop inside one block. K3 runs one block per (b*h, 64-key
@@ -32,12 +30,10 @@
 // loops over key tiles. Every accumulator stays in registers of the block that
 // owns its rows, so there are no atomics and both kernels are deterministic.
 // As in K1, four threads share a row and each owns every fourth feature: the
-// tile staged in shared memory (as f32) is read by broadcast without bank
-// conflicts, and each dot product ends in a two-step butterfly. Causal tiles
-// that cannot contribute are skipped. wgmma, TMA and pipelining are left for
-// later work.
+// tile staged in shared memory is read by broadcast without bank conflicts,
+// and each dot product ends in a two-step butterfly. Causal tiles that cannot
+// contribute are skipped.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -45,20 +41,6 @@ namespace {
 constexpr int kBlockRows = 64;     // rows a block owns (keys in K3, queries in K4)
 constexpr int kLanesPerRow = 4;    // threads sharing one row
 constexpr int kThreads = kBlockRows * kLanesPerRow;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded to T and back: the Pallas kernels' `.astype(dtype)` before a dot.
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
 
 // The four lanes of a row are adjacent; the butterfly leaves the row's sum
 // in all four. Every lane of the warp must call it.
@@ -68,9 +50,7 @@ __device__ __forceinline__ float row_sum(float part) {
   return part;
 }
 
-// K3 in f32: dk, dv for one (b*h, 64-key tile), looping over query tiles.
-// In f32 the Pallas kernel's roundings of p and ds to the operand dtype are
-// no-ops.
+// K3: dk, dv for one (b*h, 64-key tile), looping over query tiles.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -153,12 +133,12 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // K4: dq for one (b*h, 64-query tile), looping over key tiles.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int n,
+                    const float* __restrict__ delta, float* __restrict__ dq, int n,
                     float scale, bool causal) {
   constexpr int kTileK = D >= 128 ? 32 : 64;  // keeps the K/V tiles at 32 KB
   constexpr int kDimsPerLane = D / kLanesPerRow;
@@ -177,8 +157,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < kDimsPerLane; ++i) {
     const size_t off = base + static_cast<size_t>(row) * D + lane + kLanesPerRow * i;
-    q_r[i] = row_ok ? to_f32(q[off]) : 0.f;
-    do_r[i] = row_ok ? to_f32(dout[off]) : 0.f;
+    q_r[i] = row_ok ? q[off] : 0.f;
+    do_r[i] = row_ok ? dout[off] : 0.f;
     dq_acc[i] = 0.f;
   }
   const float lse_r = row_ok ? lse[row_base + row] : 0.f;
@@ -192,8 +172,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = idx / D, dd = idx % D;
       const bool ok = k0 + j < n;
       const size_t off = base + static_cast<size_t>(k0 + j) * D + dd;
-      k_s[j][dd] = ok ? to_f32(k[off]) : 0.f;
-      v_s[j][dd] = ok ? to_f32(v[off]) : 0.f;
+      k_s[j][dd] = ok ? k[off] : 0.f;
+      v_s[j][dd] = ok ? v[off] : 0.f;
     }
     __syncthreads();
 
@@ -209,7 +189,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int col = k0 + j;
       const bool keep = row_ok && col < n && (!causal || col <= row);
       const float p = keep ? expf(s * scale - lse_r) : 0.f;
-      const float ds = round_to<T>(p * (dp - delta_r));  // ds.astype(k.dtype)
+      const float ds = p * (dp - delta_r);
 #pragma unroll
       for (int i = 0; i < kDimsPerLane; ++i) {
         dq_acc[i] += ds * k_s[j][lane + kLanesPerRow * i];
@@ -221,7 +201,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kDimsPerLane; ++i) {
       const size_t off = base + static_cast<size_t>(row) * D + lane + kLanesPerRow * i;
-      dq[off] = from_f32<T>(scale * dq_acc[i]);
+      dq[off] = scale * dq_acc[i];
     }
   }
 }
@@ -250,25 +230,14 @@ cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const Args& a, void* dq) {
-  flash_bwd_dq_kernel<T, D><<<grid_of(a), kThreads, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+  flash_bwd_dq_kernel<D><<<grid_of(a), kThreads, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(dq), a.n, a.scale, a.causal);
+      static_cast<float*>(dq), a.n, a.scale, a.causal);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_dq(const Args& a, int d, void* dq) {
-  switch (d) {
-    case 16: return launch_dq<T, 16>(a, dq);
-    case 32: return launch_dq<T, 32>(a, dq);
-    case 64: return launch_dq<T, 64>(a, dq);
-    case 128: return launch_dq<T, 128>(a, dq);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
@@ -293,19 +262,22 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
   }
 }
 
-// q, k, v, dout, dq: contiguous (bh, n, d) in the dtype given by `dtype`
-// (0 = float32, 1 = bfloat16); lse, delta: contiguous float32 (bh, n).
+// q, k, v, dout, dq: contiguous float32 (bh, n, d); lse, delta: contiguous
+// float32 (bh, n). Returns the CUDA error of its launch (0 on success). bf16
+// K4 is flash_attention_bwd_dq_mma.
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
-                                      void* dq, int bh, int n, int d, int dtype,
+                                      void* dq, int bh, int n, int d,
                                       float scale, int causal, void* stream) {
   const Args a{q, k, v, dout, lse, delta, bh, n, scale, causal != 0,
                static_cast<cudaStream_t>(stream)};
   if (!valid(a)) return cudaErrorInvalidValue;
-  switch (dtype) {
-    case 0: return dispatch_dq<float>(a, d, dq);
-    case 1: return dispatch_dq<__nv_bfloat16>(a, d, dq);
+  switch (d) {
+    case 16: return launch_dq<16>(a, dq);
+    case 32: return launch_dq<32>(a, dq);
+    case 64: return launch_dq<64>(a, dq);
+    case 128: return launch_dq<128>(a, dq);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,7 +1,7 @@
 // Flash-attention dk/dv backward on Hopper's tensor cores (sm_90a): kernel K3
 // of the PyTorch port, its bf16 variant ("mma"). f32 inputs take the
-// CUDA-core variant in flash_attention_bwd.cu, which keeps true f32 products;
-// K4 (dq) stays there for both types.
+// CUDA-core variant in flash_attention_bwd.cu, which keeps true f32 products.
+// K4 (dq) has its own tensor-core kernel in flash_attention_bwd_dq_mma.cu.
 //
 // Replaces open_genie_tpu/ops/pallas/flash_attention.py::_bwd_dkv_kernel
 // (launched by _flash_backward) and computes what it computes, from the

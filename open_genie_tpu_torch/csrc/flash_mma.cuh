@@ -1,5 +1,6 @@
 // Building blocks shared by the tensor-core flash-attention kernels (K1 in
-// flash_attention_mma.cu, K3 in flash_attention_bwd_mma.cu): 16-byte cp.async
+// flash_attention_mma.cu, K3 in flash_attention_bwd_mma.cu, K4 in
+// flash_attention_bwd_dq_mma.cu): 16-byte cp.async
 // copies into padded shared-memory tiles, ldmatrix loads of mma fragments,
 // and the bf16 mma.sync.m16n8k16 product with f32 accumulation.
 //

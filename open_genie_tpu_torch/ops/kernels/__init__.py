@@ -32,15 +32,17 @@ _LIB_NAME = "libopen_genie_kernels.so"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry point -> argtypes; every entry returns its cudaError_t as int.
 _SIGNATURES = {
-    # f32 (CUDA cores) and bf16 (tensor cores):
+    # f32 (CUDA cores) and bf16 (tensor cores), each pair below:
     # q, k, v, o, lse, bh, n, d, scale, causal, stream
     "flash_attention_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     "flash_attention_fwd_mma": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # q, k, v, dout, lse, delta, dk, dv, bh, n, d, scale, causal, stream
     "flash_attention_bwd_dkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     "flash_attention_bwd_dkv_mma": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
-    # q, k, v, dout, lse, delta, dq, bh, n, d, dtype, scale, causal, stream
-    "flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P),
+    # q, k, v, dout, lse, delta, dq, bh, n, d, scale, causal, stream
+    "flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
+    # the same, then key_tile (0 chooses; 16 or 64), stream
+    "flash_attention_bwd_dq_mma": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P),
     # x, w, b, codes, idx, n, c, d, dtype, stream
     "lfq_head": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, q, n, d, beta, stream

@@ -5,13 +5,13 @@ K3 `_bwd_dkv_kernel` and K4 `_bwd_dq_kernel`. Each wrapper dispatches by
 device: a CPU tensor goes to the plain PyTorch twin, a CUDA tensor launches
 the kernel (or raises), any other device raises.
 
-K1 and K3 have two variants, chosen by `flash_variant` from the dtype
-before launch: bf16 runs on the tensor cores ("mma",
-`csrc/flash_attention_mma.cu`, `csrc/flash_attention_bwd_mma.cu`), f32 on
-the CUDA cores with true f32 products ("simt", `csrc/flash_attention.cu`,
-`csrc/flash_attention_bwd.cu`). K4 is "simt" for both. Each wrapper counts
-its launches in `launches`, by variant in `launches_by_variant` and by
-`(BH, N, D, causal)` in `launches_by_shape`.
+Each has two variants, chosen by `flash_variant` from the dtype before
+launch: bf16 runs on the tensor cores ("mma", `csrc/flash_attention_mma.cu`,
+`csrc/flash_attention_bwd_mma.cu`, `csrc/flash_attention_bwd_dq_mma.cu`),
+f32 on the CUDA cores with true f32 products ("simt",
+`csrc/flash_attention.cu`, `csrc/flash_attention_bwd.cu`). Each wrapper
+counts its launches in `launches`, by variant in `launches_by_variant` and
+by `(BH, N, D, causal)` in `launches_by_shape`.
 
 `FlashAttention` ties them into one `torch.autograd.Function` (the JAX
 package's `custom_vjp`): the forward is K1 and saves only
@@ -28,15 +28,15 @@ from torch.autograd.function import once_differentiable
 
 from open_genie_tpu_torch.ops import kernels
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128)
 VARIANTS = ("mma", "simt")
-_BLOCK_M = 64  # rows per thread block in every kernel (grid y <= 65535 tiles)
+_BLOCK_M = 64  # rows per block of the CUDA-core kernels (grid y <= 65535 tiles)
 _NEG_BIG = -1e30  # the Pallas kernels' masked logit
 
 
 def flash_variant(dtype: torch.dtype, d: int) -> str:
-    """The variant of K1 and K3 that takes `(BH, N, d)` tensors of `dtype`:
+    """The variant of K1, K3 and K4 that takes `(BH, N, d)` tensors of `dtype`:
     "mma" (tensor cores) for bfloat16, "simt" (CUDA cores, true f32
     products) for float32. Raises for any other dtype or head dim."""
     if d not in HEAD_DIMS:
@@ -216,28 +216,38 @@ flash_attention_bwd_dkv.launches_by_shape = Counter()
 def flash_attention_bwd_dq(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, scale: float, causal: bool = False,
+    key_tile: int = 0,
 ) -> torch.Tensor:
-    """Kernel K4 on CUDA tensors: `dq`, from the same inputs as K3."""
+    """Kernel K4 on CUDA tensors: `dq`, from the same inputs as K3.
+
+    `key_tile` sets the bf16 kernel's keys per tile, for measurement: 0
+    lets it choose (16 for N <= 16 in one-warp blocks, else 64); 16 or 64
+    forces one (16 only where a block has one warp)."""
     _check_bwd(q, k, v, do, lse, delta)
+    if key_tile not in (0, 16, 64) or (key_tile and q.dtype != torch.bfloat16):
+        raise ValueError(f"flash_attention_bwd_dq: key_tile {key_tile} is 0, or 16 or 64 in bf16")
     if not _on_cuda(q, "flash_attention_bwd_dq"):
         raise ValueError("flash_attention_bwd_dq launches on CUDA tensors only")
     bh, n, d = q.shape
+    variant = flash_variant(q.dtype, d)
     lib = kernels.library()
     dq = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), bh, n, d, float(scale), int(causal))
     with torch.cuda.device(q.device):
-        err = lib.flash_attention_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            bh, n, d, _DTYPES[q.dtype], float(scale), int(causal),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    kernels.check(err, "flash_attention_bwd_dq")
-    _count(flash_attention_bwd_dq, "simt", q, causal)
+        stream = torch.cuda.current_stream().cuda_stream
+        if variant == "mma":
+            _aligned(q, k, v, do)
+            err = lib.flash_attention_bwd_dq_mma(*args, key_tile, stream)
+        else:
+            err = lib.flash_attention_bwd_dq(*args, stream)
+    kernels.check(err, f"flash_attention_bwd_dq ({variant})")
+    _count(flash_attention_bwd_dq, variant, q, causal)
     return dq
 
 
 flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dq.launches_by_variant = {"simt": 0}
+flash_attention_bwd_dq.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 flash_attention_bwd_dq.launches_by_shape = Counter()
 
 

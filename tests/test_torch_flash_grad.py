@@ -4,7 +4,7 @@
 `jax.grad` of the JAX package's Pallas flash attention in interpret mode,
 on the same numpy inputs, at the sequence lengths and head dims that the
 tensor-core kernels' tiles treat differently; the plain backward against
-torch autograd of the plain forward; and the choice of K1's and K3's
+torch autograd of the plain forward; and the choice of K1's, K3's and K4's
 variant from the dtype. Tolerances: f32 atol 1e-5 / rtol 1e-4 (the same math in
 another order); bf16 atol/rtol 2e-2 (rounding of p, ds and the outputs to
 bf16 at slightly different places in the two programs).
@@ -100,8 +100,9 @@ def test_plain_twins_match_pallas_at_tile_edges(n, d, causal, dtype):
 
 
 def test_variant_follows_dtype_for_every_head_dim():
-    """bf16 takes the tensor-core variant of K1 and K3, f32 the CUDA-core
-    one, at every head dim; anything else raises before a launch."""
+    """bf16 takes the tensor-core variant of K1, K3 and K4, f32 the
+    CUDA-core one, at every head dim; anything else raises before a
+    launch."""
     for d in HEAD_DIMS:
         assert flash_variant(torch.bfloat16, d) == "mma"
         assert flash_variant(torch.float32, d) == "simt"
@@ -111,9 +112,8 @@ def test_variant_follows_dtype_for_every_head_dim():
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         flash_variant(torch.float16, 64)
     assert set(VARIANTS) == {"mma", "simt"}
-    for fn in (flash_attention, flash_attention_bwd_dkv):
+    for fn in (flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq):
         assert set(fn.launches_by_variant) == set(VARIANTS)
-    assert set(flash_attention_bwd_dq.launches_by_variant) == {"simt"}
 
 
 def test_flash_grads_match_pallas_bf16():
@@ -178,3 +178,17 @@ def test_backward_kernel_wrappers_need_cuda():
                                 stats, stats, 0.25)
     o, lse = flash_attention(q, q, q, 0.25)
     assert o.shape == q.shape and lse.shape == stats.shape
+
+
+@pytest.mark.parametrize("key_tile,dtype", [(32, torch.bfloat16), (-16, torch.bfloat16),
+                                            (16, torch.float32), (64, torch.float32)])
+def test_dq_key_tile_is_refused_before_any_launch(key_tile, dtype):
+    """K4's `key_tile` takes 0, or 16 or 64 keys for the bf16 kernel: any
+    other value, or a tile for the f32 kernel, raises before the device is
+    looked at and counts no launch."""
+    q = torch.zeros(2, 8, 16, dtype=dtype)
+    stats = torch.zeros(2, 8)
+    before = flash_attention_bwd_dq.launches
+    with pytest.raises(ValueError, match="key_tile"):
+        flash_attention_bwd_dq(q, q, q, q, stats, stats, 0.25, key_tile=key_tile)
+    assert flash_attention_bwd_dq.launches == before

@@ -123,11 +123,13 @@ def test_flash_attention_backward_kernels(cuda, bh, n, d, causal, dtype):
     o, lse = flash_attention(q, k, v, d ** -0.5, causal)
     variant = flash_variant(dtype, d)
     before = (flash_attention_bwd_dkv.launches_by_variant[variant],
+              flash_attention_bwd_dq.launches_by_variant[variant],
               flash_attention_bwd_dq.launches)
     got = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5, causal)
     torch.cuda.synchronize()
     assert (flash_attention_bwd_dkv.launches_by_variant[variant],
-            flash_attention_bwd_dq.launches) == (before[0] + 1, before[1] + 1)
+            flash_attention_bwd_dq.launches_by_variant[variant],
+            flash_attention_bwd_dq.launches) == (before[0] + 1, before[1] + 1, before[2] + 1)
     ref = _by_heads(flash_attention_bwd_plain, (q, k, v, o, lse, do), d ** -0.5, causal)
     for a, b in zip(got, ref):
         assert a.dtype == dtype
@@ -145,12 +147,33 @@ def test_tensor_core_kernels_refuse_unaligned_tensors(cuda):
     buf = torch.zeros(2 * 8 * 16 + 1, device=cuda, dtype=torch.bfloat16)
     q = buf[1:].view(2, 8, 16)
     stats = torch.zeros(2, 8, device=cuda)
-    before = (flash_attention.launches, flash_attention_bwd_dkv.launches)
+    fns = (flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq)
+    before = [fn.launches for fn in fns]
     with pytest.raises(ValueError, match="16-byte aligned"):
         flash_attention(q, q, q, 0.25)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        flash_attention_bwd_dkv(q, q, q, q, stats, stats, 0.25)
-    assert (flash_attention.launches, flash_attention_bwd_dkv.launches) == before
+    for fn in fns[1:]:
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fn(q, q, q, q, stats, stats, 0.25)
+    assert [fn.launches for fn in fns] == before
+
+
+@pytest.mark.parametrize("bh,n,d,causal", [(65536, 16, 16, True), (2048, 5, 16, True),
+                                           (3, 1, 32, True), (8, 16, 64, False)])
+def test_dq_key_tiles_agree_on_short_problems(cuda, bh, n, d, causal):
+    """bf16 K4 on problems of N <= 16 with 16-key tiles (its choice there)
+    and with 64-key tiles: the same live chunk in the same order, so dq is
+    bit-identical; a 16-key tile in a block of several warps is refused."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v, do = (torch.randn(bh, n, d, generator=g, device=cuda).bfloat16() for _ in range(4))
+    o, lse = flash_attention(q, k, v, d ** -0.5, causal)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = {tile: flash_attention_bwd_dq(q, k, v, do, lse, delta, d ** -0.5, causal, key_tile=tile)
+          for tile in (0, 16, 64)}
+    assert torch.equal(dq[0], dq[16]) and torch.equal(dq[16], dq[64])
+    q2 = torch.zeros(256, 64, d, device=cuda, dtype=torch.bfloat16)  # blocks of 4 warps
+    stats = torch.zeros(256, 64, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        flash_attention_bwd_dq(q2, q2, q2, q2, stats, stats, 0.25, key_tile=16)
 
 
 def test_attention_gradients_reach_inputs_on_the_card(cuda):
