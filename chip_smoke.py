@@ -58,8 +58,9 @@ Phases, in order (any failure raises and the exit code is non-zero):
  13. K3 and K4 in bf16 at every shape of the two training paths, as CUDA
      graphs with the eager calls beside: times beside aten's flash backward,
      the plain backward where it is cheap, the bounds, each path's launches
-     of the shape per step and launches x (time - bound); K4's 16-key tiles
-     against 64-key tiles at N = 16.
+     of the shape per step and launches x (time - bound), at every shape
+     that a path's backward launches (the long calls that phases 7 and 10
+     timed keep those times).
 The line before the last is a JSON summary of the kernels (`launches` on
 one step of the newest path that runs each, and the counts by path; the
 variant, and the kernel's, the plain twin's and the library call's ms
@@ -104,6 +105,9 @@ BF16_RTOL, BF16_ATOL_RMS, BF16_ATOL = 2 ** -7, 2 ** -5, 1e-4
 LFQ_UNDECIDED = 1e-5  # |z| below this is a sign decided by rounding
 PIX_TOL = dict(atol=2e-3, rtol=2e-2)  # the repo's parity bound for stacks
 TOK_TIMED_STEPS = 10  # full-width tokenizer steps timed after the three checked
+# Calls shorter than this are timed as CUDA graphs: their eager time would
+# hold the host's launch.
+GRAPH_BELOW_MS = 0.1
 # Every (B*H, N, D, causal) that each full-width path gives K1 in bf16 (K3
 # and K4 take those of them that are trained); phases 6, 9 and 12 assert
 # that their paths launch exactly these.
@@ -227,24 +231,29 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5, graph: bool = False) -> float:
     return start.elapsed_time(end) / iters
 
 
+def alternate(calls: dict, graph: bool = False) -> dict:
+    """Mean ms of each `name: (fn, iters)` of `calls`, timed once in the
+    given order and once in the reverse order, so that a drift of the
+    card's clocks falls on all of them alike."""
+    runs = {name: [] for name in calls}
+    for name in list(calls) + list(calls)[::-1]:
+        fn, iters = calls[name]
+        runs[name].append(cuda_ms(fn, iters, warmup=min(5, iters), graph=graph))
+    return {name: sum(r) / len(r) for name, r in runs.items()}
+
+
 def in_turns(plain, kernel, plain_iters: int = 50, library=None, iters: int = 50,
              graph: bool = False) -> dict:
     """Times of the kernel, its plain version and, where given, one library
     call that computes the same function: run plain, kernel, kernel, plain,
     then library, kernel, kernel, library; each the mean of its runs."""
-    def other(fn):
-        return cuda_ms(fn, iters=plain_iters, warmup=min(5, plain_iters), graph=graph)
-
-    def kern():
-        return cuda_ms(kernel, iters, graph=graph)
-
-    p1, k1, k2, p2 = other(plain), kern(), kern(), other(plain)
-    ks, lib = [k1, k2], None
+    t = alternate({"plain": (plain, plain_iters), "kernel": (kernel, iters)}, graph)
+    ks, lib = [t["kernel"]], None
     if library is not None:
-        l1 = cuda_ms(library, iters, graph=graph)
-        ks += [kern(), kern()]
-        lib = (l1 + cuda_ms(library, iters, graph=graph)) / 2
-    return {"ms": sum(ks) / len(ks), "plain_ms": (p1 + p2) / 2, "library_ms": lib}
+        t_lib = alternate({"library": (library, iters), "kernel": (kernel, iters)}, graph)
+        ks.append(t_lib["kernel"])
+        lib = t_lib["library"]
+    return {"ms": sum(ks) / len(ks), "plain_ms": t["plain"], "library_ms": lib}
 
 
 def sdpa_forward(q, k, v, scale: float, causal: bool):
@@ -261,11 +270,11 @@ def aten_flash_backward(q, k, v, do, scale: float, causal: bool):
     """A call of aten's flash-attention backward, which computes dq, dk and
     dv together, on the saved forward of aten's flash forward on the same
     inputs: the yardstick of K3 and K4 (`library_ms`)."""
-    # (B*H, N, D) as (B, H, N, D) with H <= 65535, the kernel's grid limit.
-    b = 1
-    while q.shape[0] // b > 65535 or q.shape[0] % b:
-        b *= 2
-    q4, k4, v4, do4 = (t.view(b, -1, *t.shape[1:]) for t in (q, k, v, do))
+    # (B*H, N, D) as (B, H, N, D) with H the largest divisor of B*H that is
+    # at most 65535, the kernel's grid limit.
+    bh = q.shape[0]
+    h = next(h for h in range(min(bh, 65535), 0, -1) if bh % h == 0)
+    q4, k4, v4, do4 = (t.view(bh // h, h, *t.shape[1:]) for t in (q, k, v, do))
     o4, lse4, cq, ck, mq, mk, seed, offset, _ = \
         torch.ops.aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, causal, False,
                                                            scale=scale)
@@ -273,11 +282,19 @@ def aten_flash_backward(q, k, v, do, scale: float, causal: bool):
         do4, q4, k4, v4, o4, lse4, cq, ck, mq, mk, 0.0, causal, seed, offset, scale=scale)
 
 
-def _print_backward_sum(label: str, shape, k3: dict, k4: dict) -> None:
+# (B*H, N, D, causal) -> K3's, K4's and aten's backward's ms where phases
+# 7 and 10 timed them, for phase 13.
+_BACKWARD_MS = {}
+
+
+def _print_backward_sum(label: str, case, k3: dict, k4: dict) -> None:
     """K3 + K4 against aten's flash backward, which computes dq, dk and dv
-    in one call: the fair comparison of the port's backward."""
-    print(f"[{label}] bf16 (BH,N,D)={tuple(shape)} K3 + K4: {k3['ms'] + k4['ms']:.4f} ms, "
-          f"aten flash backward (dq, dk, dv) {k3['library_ms']:.4f} ms")
+    in one call: the fair comparison of the port's backward. Kept in
+    `_BACKWARD_MS` for phase 13."""
+    print(f"[{label}] bf16 (BH,N,D,causal)={tuple(case)} K3 + K4: "
+          f"{k3['ms'] + k4['ms']:.4f} ms, aten flash backward (dq, dk, dv) "
+          f"{k3['library_ms']:.4f} ms")
+    _BACKWARD_MS[tuple(case)] = {"K3": k3["ms"], "K4": k4["ms"], "aten": k3["library_ms"]}
 
 
 def phase_device() -> dict:
@@ -610,7 +627,7 @@ def phase_flash_bwd(dev) -> tuple:
                   f"{tt['library_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
                   f"exponentials {b['exp_floor_ms']:.4f} ms")
             rows[name] = {**tt, **b, "shape": [bh, n, d]}
-        _print_backward_sum("K1/K3/K4 time", (bh, n, d), t["flash_attention_bwd_dkv"],
+        _print_backward_sum("K1/K3/K4 time", (bh, n, d, False), t["flash_attention_bwd_dkv"],
                             t["flash_attention_bwd_dq"])
         del q, k, v, o, lse, do, delta, library
 
@@ -789,17 +806,17 @@ def _flash_head_dim_32(dev) -> None:
               f"plain {t['plain_ms']:.4f} ms (over 8 slices of 8 heads), library "
               f"{t['library_ms']:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']}), "
               f"exponentials {b['exp_floor_ms']:.4f} ms")
-    _print_backward_sum("K1/K3/K4 D=32 time", (64, 4096, 32), times["K3"], times["K4"])
+    _print_backward_sum("K1/K3/K4 D=32 time", (64, 4096, 32, False), times["K3"], times["K4"])
 
 
 def phase_backward_shapes(dev, launches: dict) -> None:
-    """K3 and K4 in bf16 at every shape that the two training paths give
-    them, beside aten's flash backward (dq, dk and dv in one call), the
-    plain backward where one slice of at most 2^27 logits holds it, the
-    bounds, and each path's launches of the shape per step (`launches`:
-    path -> kernel -> shape -> count, from phases 9 and 12). Times are CUDA
-    graphs (device time), the eager calls beside; the short problems also
-    time K4 with 64-key tiles against its choice of 16."""
+    """K3 and K4 in bf16 at every shape that a training path launches them
+    at, beside aten's flash backward (dq, dk and dv in one call), the plain
+    backward where one slice of at most 2^27 logits holds it, the bounds,
+    and each path's launches of the shape per step (`launches`: path ->
+    kernel -> shape -> count, from phases 9 and 12). Times are CUDA graphs
+    (device time), the eager calls beside; calls of at least
+    `GRAPH_BELOW_MS` that phases 7 and 10 timed keep those eager times."""
     from open_genie_tpu_torch.ops.kernels.flash_attention import (
         flash_attention,
         flash_attention_bwd_dkv,
@@ -808,50 +825,50 @@ def phase_backward_shapes(dev, launches: dict) -> None:
     )
 
     g = torch.Generator(device=dev).manual_seed(SEED + 14)
-    for case in PATH_CASES["train_step"] + PATH_CASES["tokenizer_train"]:
+    paths = ("train_step", "tokenizer_train")
+    names = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    per_step = {case: {path: [launches[path][name].get(case, 0) for name in names]
+                       for path in paths}
+                for path in paths for case in PATH_CASES[path]}
+    for case, counts in per_step.items():
+        if not any(c for pair in counts.values() for c in pair):
+            continue
         bh, n, d, causal = case
-        q, k, v, do = (torch.randn(bh, n, d, generator=g, device=dev, dtype=torch.bfloat16)
-                       for _ in range(4))
-        s = d ** -0.5
-        o, lse = flash_attention(q, k, v, s, causal)
-        delta = (do.float() * o.float()).sum(-1)
-        fns = {"K3": lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, s, causal),
-               "K4": lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, s, causal),
-               "aten": aten_flash_backward(q, k, v, do, s, causal)}
-        if n <= 16:
-            fns["K4, 64-key tiles"] = lambda: flash_attention_bwd_dq(
-                q, k, v, do, lse, delta, s, causal, key_tile=64)
-        if bh * n * n <= 2 ** 27:
-            fns["plain"] = lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, s, causal)
-        iters = 10 if bh * n * n > 2 ** 30 else 50
-        # In turns: each name once forward, once backward; the mean of both.
-        order = list(fns) + list(fns)[::-1]
-        runs = {name: [] for name in fns}
-        for name in order:
-            runs[name].append(cuda_ms(fns[name], iters, graph=True))
-        ms = {name: sum(r) / len(r) for name, r in runs.items()}
-        eager = {name: cuda_ms(fns[name], iters) for name in ("K3", "K4", "aten")}
-        _release_capture_stream()
+        timed = _BACKWARD_MS.get(case)
+        if timed and min(timed["K3"], timed["K4"]) >= GRAPH_BELOW_MS:
+            ms, how = timed, "eager, from phase 7 or 10"
+        else:
+            q, k, v, do = (torch.randn(bh, n, d, generator=g, device=dev, dtype=torch.bfloat16)
+                           for _ in range(4))
+            s = d ** -0.5
+            o, lse = flash_attention(q, k, v, s, causal)
+            delta = (do.float() * o.float()).sum(-1)
+            fns = {"K3": lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, s, causal),
+                   "K4": lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, s, causal),
+                   "aten": aten_flash_backward(q, k, v, do, s, causal)}
+            if bh * n * n <= 2 ** 27:
+                fns["plain"] = lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, s, causal)
+            iters = 10 if bh * n * n > 2 ** 30 else 50
+            ms = alternate({name: (fn, iters) for name, fn in fns.items()}, graph=True)
+            eager = {name: cuda_ms(fns[name], iters) for name in ("K3", "K4", "aten")}
+            _release_capture_stream()
+            plain = f", plain {ms['plain']:.4f} ms" if "plain" in ms else ""
+            how = (f"CUDA graphs{plain}; eager K3 {eager['K3']:.4f}, K4 {eager['K4']:.4f}, "
+                   f"aten {eager['aten']:.4f} ms")
+            del q, k, v, do, o, lse, delta, fns
         b3, b4 = flash_bound("dkv", bh, n, d, causal), flash_bound("dq", bh, n, d, causal)
-        per_step = {path: [launches[path][name].get(case, 0)
-                           for name in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")]
-                    for path in ("train_step", "tokenizer_train")}
         gap = {path: (c3 * (ms["K3"] - b3["bound_ms"]), c4 * (ms["K4"] - b4["bound_ms"]))
-               for path, (c3, c4) in per_step.items()}
-        extra = "".join(f", {name} {ms[name]:.4f} ms" for name in fns
-                        if name not in ("K3", "K4", "aten"))
-        print(f"[backward shapes] bf16 (BH,N,D,causal)={case}, CUDA graphs: K3 {ms['K3']:.4f} "
-              f"ms, K4 {ms['K4']:.4f} ms, K3 + K4 {ms['K3'] + ms['K4']:.4f} ms, aten flash "
-              f"backward {ms['aten']:.4f} ms{extra}; eager K3 {eager['K3']:.4f}, K4 "
-              f"{eager['K4']:.4f}, aten {eager['aten']:.4f} ms; bound K3 {b3['bound_ms']:.5f} "
+               for path, (c3, c4) in counts.items()}
+        print(f"[backward shapes] bf16 (BH,N,D,causal)={case}: K3 {ms['K3']:.4f} ms, K4 "
+              f"{ms['K4']:.4f} ms, K3 + K4 {ms['K3'] + ms['K4']:.4f} ms, aten flash backward "
+              f"{ms['aten']:.4f} ms ({how}); bound K3 {b3['bound_ms']:.5f} "
               f"({b3['bound_by']}), K4 {b4['bound_ms']:.5f} ({b4['bound_by']}), exponentials "
               f"{b4['exp_floor_ms']:.5f} ms each; launches (K3, K4) per Genie step "
-              f"{tuple(per_step['train_step'])}, per tokenizer step "
-              f"{tuple(per_step['tokenizer_train'])}; launches x (ms - bound) (K3, K4) per "
+              f"{tuple(counts['train_step'])}, per tokenizer step "
+              f"{tuple(counts['tokenizer_train'])}; launches x (ms - bound) (K3, K4) per "
               f"Genie step ({gap['train_step'][0]:.3f}, {gap['train_step'][1]:.3f}) ms, per "
               f"tokenizer step ({gap['tokenizer_train'][0]:.3f}, "
               f"{gap['tokenizer_train'][1]:.3f}) ms")
-        del q, k, v, do, o, lse, delta, fns
 
 
 def phase_compact_parity(dev):

@@ -216,7 +216,6 @@ struct Args {
   int bh, n;
   float scale;
   bool causal;
-  int key_tile;
   cudaStream_t stream;
 };
 
@@ -236,15 +235,13 @@ cudaError_t launch(const Args& a) {
   return cudaGetLastError();
 }
 
-// Warps from the grid; 16-key tiles for N <= 16 in one-warp blocks unless
-// `key_tile` asks for a size (16 only in one-warp blocks).
+// Warps from the grid; 16-key tiles for N <= 16 in one-warp blocks, where
+// they measured 2 to 15% faster than 64-key tiles on an H100, else 64.
 template <int D>
 cudaError_t dispatch_warps(const Args& a) {
   const int w = warps_for<D>(a.bh, a.n);
-  const int tile = a.key_tile != 0 ? a.key_tile : (w == 1 && a.n <= 16 ? 16 : 64);
-  if (tile != 64 && !(tile == 16 && w == 1)) return cudaErrorInvalidValue;
   if constexpr (D < 128) {
-    if (w == 1) return tile == 16 ? launch<D, 1, 16>(a) : launch<D, 1, 64>(a);
+    if (w == 1) return a.n <= 16 ? launch<D, 1, 16>(a) : launch<D, 1, 64>(a);
     if (w == 2) return launch<D, 2, 64>(a);
   }
   return launch<D, 4, 64>(a);
@@ -253,15 +250,14 @@ cudaError_t dispatch_warps(const Args& a) {
 }  // namespace
 
 // q, k, v, dout, dq: contiguous bf16 (bh, n, d), 16-byte aligned; lse,
-// delta: contiguous float32 (bh, n). key_tile: 0 to choose, or 16 or 64
-// keys per tile. Returns the CUDA error of the launch (0 on success).
+// delta: contiguous float32 (bh, n). Returns the CUDA error of the launch
+// (0 on success).
 extern "C" int flash_attention_bwd_dq_mma(const void* q, const void* k, const void* v,
                                           const void* dout, const void* lse,
                                           const void* delta, void* dq, int bh, int n, int d,
-                                          float scale, int causal, int key_tile,
-                                          void* stream) {
+                                          float scale, int causal, void* stream) {
   if (bh <= 0 || n <= 0) return cudaErrorInvalidValue;
-  const Args a{q, k, v, dout, lse, delta, dq, bh, n, scale, causal != 0, key_tile,
+  const Args a{q, k, v, dout, lse, delta, dq, bh, n, scale, causal != 0,
                static_cast<cudaStream_t>(stream)};
   switch (d) {
     case 16: return dispatch_warps<16>(a);

@@ -41,8 +41,7 @@ _SIGNATURES = {
     "flash_attention_bwd_dkv_mma": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # q, k, v, dout, lse, delta, dq, bh, n, d, scale, causal, stream
     "flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
-    # the same, then key_tile (0 chooses; 16 or 64), stream
-    "flash_attention_bwd_dq_mma": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _P),
+    "flash_attention_bwd_dq_mma": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # x, w, b, codes, idx, n, c, d, dtype, stream
     "lfq_head": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # x, q, n, d, beta, stream

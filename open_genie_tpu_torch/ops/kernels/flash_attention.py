@@ -216,31 +216,26 @@ flash_attention_bwd_dkv.launches_by_shape = Counter()
 def flash_attention_bwd_dq(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
     lse: torch.Tensor, delta: torch.Tensor, scale: float, causal: bool = False,
-    key_tile: int = 0,
 ) -> torch.Tensor:
-    """Kernel K4 on CUDA tensors: `dq`, from the same inputs as K3.
-
-    `key_tile` sets the bf16 kernel's keys per tile, for measurement: 0
-    lets it choose (16 for N <= 16 in one-warp blocks, else 64); 16 or 64
-    forces one (16 only where a block has one warp)."""
+    """Kernel K4 on CUDA tensors: `dq`, from the same inputs as K3."""
     _check_bwd(q, k, v, do, lse, delta)
-    if key_tile not in (0, 16, 64) or (key_tile and q.dtype != torch.bfloat16):
-        raise ValueError(f"flash_attention_bwd_dq: key_tile {key_tile} is 0, or 16 or 64 in bf16")
     if not _on_cuda(q, "flash_attention_bwd_dq"):
         raise ValueError("flash_attention_bwd_dq launches on CUDA tensors only")
     bh, n, d = q.shape
     variant = flash_variant(q.dtype, d)
     lib = kernels.library()
     dq = torch.empty_like(q)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), bh, n, d, float(scale), int(causal))
+    entry = lib.flash_attention_bwd_dq
+    if variant == "mma":
+        _aligned(q, k, v, do)
+        entry = lib.flash_attention_bwd_dq_mma
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if variant == "mma":
-            _aligned(q, k, v, do)
-            err = lib.flash_attention_bwd_dq_mma(*args, key_tile, stream)
-        else:
-            err = lib.flash_attention_bwd_dq(*args, stream)
+        err = entry(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            bh, n, d, float(scale), int(causal),
+            torch.cuda.current_stream().cuda_stream,
+        )
     kernels.check(err, f"flash_attention_bwd_dq ({variant})")
     _count(flash_attention_bwd_dq, variant, q, causal)
     return dq

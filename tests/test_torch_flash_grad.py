@@ -180,15 +180,24 @@ def test_backward_kernel_wrappers_need_cuda():
     assert o.shape == q.shape and lse.shape == stats.shape
 
 
-@pytest.mark.parametrize("key_tile,dtype", [(32, torch.bfloat16), (-16, torch.bfloat16),
-                                            (16, torch.float32), (64, torch.float32)])
-def test_dq_key_tile_is_refused_before_any_launch(key_tile, dtype):
-    """K4's `key_tile` takes 0, or 16 or 64 keys for the bf16 kernel: any
-    other value, or a tile for the f32 kernel, raises before the device is
-    looked at and counts no launch."""
-    q = torch.zeros(2, 8, 16, dtype=dtype)
-    stats = torch.zeros(2, 8)
-    before = flash_attention_bwd_dq.launches
-    with pytest.raises(ValueError, match="key_tile"):
-        flash_attention_bwd_dq(q, q, q, q, stats, stats, 0.25, key_tile=key_tile)
-    assert flash_attention_bwd_dq.launches == before
+_BAD_BWD_INPUTS = {
+    "dO of another shape": ({"do": torch.zeros(2, 8, 32, dtype=torch.bfloat16)}, "contiguous dO"),
+    "bf16 lse": ({"lse": torch.zeros(2, 8, dtype=torch.bfloat16)}, r"f32 \(BH, N\)"),
+    "strided delta": ({"delta": torch.zeros(8, 2).t()}, r"f32 \(BH, N\)"),
+    "lse on another device": ({"lse": torch.zeros(2, 8, device="meta")}, "different devices"),
+}
+
+
+@pytest.mark.parametrize("bad", sorted(_BAD_BWD_INPUTS))
+def test_backward_wrappers_refuse_bad_inputs_before_any_launch(bad):
+    """K3 and K4 take a dO like q and contiguous f32 (BH, N) lse and delta
+    on q's device: anything else raises before the device is looked at and
+    counts no launch."""
+    q = torch.zeros(2, 8, 16, dtype=torch.bfloat16)
+    change, match = _BAD_BWD_INPUTS[bad]
+    args = {"do": q, "lse": torch.zeros(2, 8), "delta": torch.zeros(2, 8), **change}
+    for fn in (flash_attention_bwd_dkv, flash_attention_bwd_dq):
+        before = fn.launches
+        with pytest.raises(ValueError, match=match):
+            fn(q, q, q, args["do"], args["lse"], args["delta"], 0.25)
+        assert fn.launches == before

@@ -157,25 +157,6 @@ def test_tensor_core_kernels_refuse_unaligned_tensors(cuda):
     assert [fn.launches for fn in fns] == before
 
 
-@pytest.mark.parametrize("bh,n,d,causal", [(65536, 16, 16, True), (2048, 5, 16, True),
-                                           (3, 1, 32, True), (8, 16, 64, False)])
-def test_dq_key_tiles_agree_on_short_problems(cuda, bh, n, d, causal):
-    """bf16 K4 on problems of N <= 16 with 16-key tiles (its choice there)
-    and with 64-key tiles: the same live chunk in the same order, so dq is
-    bit-identical; a 16-key tile in a block of several warps is refused."""
-    g = torch.Generator(device=cuda).manual_seed(5)
-    q, k, v, do = (torch.randn(bh, n, d, generator=g, device=cuda).bfloat16() for _ in range(4))
-    o, lse = flash_attention(q, k, v, d ** -0.5, causal)
-    delta = (do.float() * o.float()).sum(-1)
-    dq = {tile: flash_attention_bwd_dq(q, k, v, do, lse, delta, d ** -0.5, causal, key_tile=tile)
-          for tile in (0, 16, 64)}
-    assert torch.equal(dq[0], dq[16]) and torch.equal(dq[16], dq[64])
-    q2 = torch.zeros(256, 64, d, device=cuda, dtype=torch.bfloat16)  # blocks of 4 warps
-    stats = torch.zeros(256, 64, device=cuda)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        flash_attention_bwd_dq(q2, q2, q2, q2, stats, stats, 0.25, key_tile=16)
-
-
 def test_attention_gradients_reach_inputs_on_the_card(cuda):
     """The autograd path on CUDA tensors: gradients through K1, K3 and K4
     equal those of the plain path on the same inputs."""
