@@ -14,8 +14,10 @@ Phases, in order (any failure raises and the exit code is non-zero):
      ragged edges; bf16 (the tensor-core variant) at every shape of the
      three paths, ragged N and D = 128, o and lse, two calls bit-identical;
      times at the rollout's shapes beside SDPA's flash forward;
-  4. kernel K2 (fused LFQ head) against its plain twin, and both times as
-     CUDA graphs, the eager call beside;
+  4. kernel K2 (fused LFQ head) against its plain twin at the paths' calls
+     and edges (`LFQ_HEAD_CASES`), two calls bit-identical; both times at the
+     paths' two calls as CUDA graphs, the eager call and an empty kernel's
+     launch beside;
   5. the compact rollout model on the card against the same model on the
      CPU (plain twins there), same weights and Gumbel noise, f32;
   6. the full-width rollout (`genie_rollout_config()`, bf16, 64x64 prompt,
@@ -123,6 +125,18 @@ PATH_CASES = {
     # the frame discriminator's two spatial attentions.
     "tokenizer_train": [(64, 4096, 32, False), (64, 1024, 32, False)],
 }
+# (N, C, d) of K2 on the paths: the rollout's prompt frame (256 tokens of a
+# 128-wide tokenizer) and the Genie step's frozen tokenizer (4 x 16 frames of
+# 16x16 tokens, 64 wide); both in bf16 with 10 bits.
+LFQ_HEAD_PATH_SHAPES = [(256, 128, 10), (16384, 64, 10)]
+# (N, C, d, offset of x in elements) at which phase 4 and the card tests hold
+# K2 to its plain twin: the paths' calls, the tokenizer's 18-bit codebook, the
+# instance for any d up to 31, C no multiple of the 16-byte vector, one token
+# of one bit, and x at a 2-element offset (not 16-byte aligned).
+LFQ_HEAD_CASES = [(n, c, d, 0) for n, c, d in LFQ_HEAD_PATH_SHAPES] + [
+    (4096, 512, 18, 0), (4099, 512, 31, 0), (33, 37, 7, 0), (7, 3, 31, 0), (1, 8, 1, 0),
+    (256, 128, 10, 2), (33, 64, 18, 2),
+]
 # K1 and K3 in bf16 are held to their twins at every path case, then at tile
 # edges, ragged N and D = 128.
 FLASH_BF16_CASES = sorted({c for cases in PATH_CASES.values() for c in cases}) + [
@@ -478,49 +492,76 @@ def phase_flash(dev) -> dict:
             "max_abs_err_f32": err_f32}
 
 
+def lfq_head_inputs(g, n: int, c: int, d: int, offset: int, dtype, dev) -> tuple:
+    """K2's inputs: x (n, c) at `offset` elements into its storage; in bf16
+    W and b in bf16, W the transposed view of a (d, c) tensor, as the
+    tokenizer's 1x1x1 conv gives them; in f32 W (c, d) contiguous, in f32."""
+    x = torch.randn(n * c + offset, generator=g, device=dev).to(dtype)[offset:].view(n, c)
+    w = torch.randn(d, c, generator=g, device=dev) * c ** -0.5
+    b = torch.randn(d, generator=g, device=dev) * 0.1
+    if dtype == torch.bfloat16:
+        return x, w.to(dtype).t(), b.to(dtype)
+    return x, w.t().contiguous(), b
+
+
+def lfq_head_check(x, w, b) -> tuple:
+    """K2 against its plain twin: codes equal wherever |z| >= LFQ_UNDECIDED,
+    ids equal on rows where every code is so decided, two calls
+    bit-identical. Returns (max |d code| over decided codes, decided codes,
+    decided rows)."""
+    from open_genie_tpu_torch.ops.kernels.lfq_head import lfq_head, lfq_head_plain
+
+    codes, idx = lfq_head(x, w, b)
+    again = lfq_head(x, w, b)
+    codes_ref, idx_ref = lfq_head_plain(x, w, b)
+    decided = (x.float() @ w.float() + b.float()).abs() >= LFQ_UNDECIDED
+    rows = decided.all(dim=1)
+    torch.cuda.synchronize()
+    e = (codes.float() - codes_ref.float())[decided].abs().max().item()
+    assert e == 0.0 and torch.equal(idx[rows], idx_ref[rows]), (
+        f"K2 {tuple(x.shape)} x {w.shape[1]} {x.dtype} disagrees with its plain twin")
+    assert torch.equal(codes, again[0]) and torch.equal(idx, again[1]), "K2 not deterministic"
+    return e, int(decided.sum()), int(rows.sum())
+
+
 def phase_lfq(dev) -> dict:
     from open_genie_tpu_torch.ops.kernels.lfq_head import lfq_head, lfq_head_plain
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
     err = 0.0
-    for n, c, d in [(256, 128, 10), (4096, 512, 18)]:
+    for n, c, d, offset in LFQ_HEAD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(n, c, generator=g, device=dev).to(dtype)
-            w = torch.randn(c, d, generator=g, device=dev) * c ** -0.5
-            b = torch.randn(d, generator=g, device=dev) * 0.1
-            codes, idx = lfq_head(x, w, b)
-            codes_ref, idx_ref = lfq_head_plain(x, w, b)
-            decided = (x.float() @ w + b).abs() >= LFQ_UNDECIDED
-            rows = decided.all(dim=1)
-            e = (codes.float() - codes_ref.float())[decided].abs().max().item()
-            same_idx = torch.equal(idx[rows], idx_ref[rows])
-            torch.cuda.synchronize()
-            print(f"[K2] (N,C,d)=({n},{c},{d}) {dtype}: |dcodes|={e:.3g} on "
-                  f"{int(decided.sum())}/{decided.numel()} decided codes, "
-                  f"idx equal on {int(rows.sum())}/{n} decided rows: {same_idx}")
-            assert e == 0.0 and same_idx, "K2 disagrees with its plain twin"
+            x, w, b = lfq_head_inputs(g, n, c, d, offset, dtype, dev)
+            e, n_codes, n_rows = lfq_head_check(x, w, b)
+            print(f"[K2] (N,C,d)=({n},{c},{d}) {dtype} x at offset {offset}: |dcodes|={e:.3g} "
+                  f"on {n_codes}/{n * d} decided codes, idx equal on {n_rows}/{n} decided "
+                  f"rows, repeat bit-identical")
             err = max(err, e)
-    # The full-width rollout's call: one 64x64 prompt frame -> 256 tokens,
-    # a few microseconds: timed as CUDA graphs of 50 calls (the wrapper's
-    # casts of w and b included), the eager call beside.
-    x = torch.randn(256, 128, generator=g, device=dev, dtype=torch.bfloat16)
-    w = torch.randn(128, 10, generator=g, device=dev, dtype=torch.bfloat16)
-    b = torch.zeros(10, device=dev, dtype=torch.bfloat16)
-    t = in_turns(lambda: lfq_head_plain(x, w, b), lambda: lfq_head(x, w, b), graph=True)
-    t["eager_ms"] = cuda_ms(lambda: lfq_head(x, w, b))
+    # The paths' calls in bf16, a few microseconds each: timed as CUDA
+    # graphs of 50 calls (the wrapper's allocations included), the eager
+    # call beside; and an empty kernel's launch as CUDA graphs, the floor of
+    # a kernel that fills less than one wave of the card.
+    floor = cuda_ms(lambda: torch.cuda._sleep(0), graph=True)
+    rows = []
+    for n, c, d in LFQ_HEAD_PATH_SHAPES:
+        x, w, b = lfq_head_inputs(g, n, c, d, 0, torch.bfloat16, dev)
+        t = in_turns(lambda: lfq_head_plain(x, w, b), lambda: lfq_head(x, w, b), graph=True)
+        t["eager_ms"] = cuda_ms(lambda: lfq_head(x, w, b))
+        # x, W, b read and codes (bf16) and ids (int32) written once; a
+        # multiply-add per (token, channel, bit), in f32 on the CUDA cores.
+        t.update(bound(2 * n * c * d, 2 * (n * c + c * d + d + n * d) + 4 * n, PEAK_F32_FLOPS))
+        print(f"[K2 time] bf16 (N,C,d)=({n},{c},{d}), CUDA graphs: kernel {t['ms']:.4f} ms, "
+              f"plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.6f} ms ({t['bound_by']}), "
+              f"empty kernel launch {floor:.4f} ms; eager calls of the kernel "
+              f"{t['eager_ms']:.4f} ms each")
+        rows.append({**t, "shape": [n, c, d], "empty_launch_ms": floor})
     _release_capture_stream()
-    # x, w, b read, codes (bf16) and packed ids (int32) written; a multiply-add
-    # per (token, channel, bit), in f32 on the CUDA cores.
-    bnd = bound(2 * 256 * 128 * 10, 2 * (256 * 128 + 128 * 10 + 10 + 256 * 10) + 4 * 256,
-                PEAK_F32_FLOPS)
-    print(f"[K2 time] bf16 (N,C,d)=(256,128,10), CUDA graphs: kernel {t['ms']:.4f} ms, "
-          f"plain {t['plain_ms']:.4f} ms, bound {bnd['bound_ms']:.6f} ms ({bnd['bound_by']}); "
-          f"eager calls of the kernel {t['eager_ms']:.4f} ms each")
-    # No one PyTorch call projects, takes signs and packs them into ids.
-    return {"name": "lfq_head", "route": "cuda", "variant": "simt",
+    # No one PyTorch call projects, takes signs and packs them into ids. The
+    # row's numbers are the rollout's call; `by_shape` has both paths' calls.
+    return {"name": "lfq_head", "route": "cuda", "variant": "warp_row",
             "source": "open_genie_tpu_torch/csrc/lfq_head.cu",
             "replaces": "open_genie_tpu/ops/pallas/lfq_head.py:37",
-            "max_abs_err": err, **t, **bnd, "shape": [256, 128, 10]}
+            "max_abs_err": err, **rows[0], "by_shape": rows}
 
 
 def phase_flash_bwd(dev) -> tuple:

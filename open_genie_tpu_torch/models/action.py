@@ -12,10 +12,14 @@ from typing import Any, Dict, Tuple
 import torch
 from torch import nn
 
-from open_genie_tpu_torch.modules import blueprint_st_factor, parse_blueprint
+from open_genie_tpu_torch.modules import (
+    blueprint_out_width,
+    blueprint_st_factor,
+    parse_blueprint,
+)
 from open_genie_tpu_torch.modules.quantization import LookupFreeQuantization
 from open_genie_tpu_torch.modules.video import CausalConv3d
-from open_genie_tpu_torch.utils import cast_tuple, default, last_out_channels
+from open_genie_tpu_torch.utils import cast_tuple
 
 
 class LatentAction(nn.Module):
@@ -46,8 +50,11 @@ class LatentAction(nn.Module):
         remat: bool = True,
     ):
         super().__init__()
-        enc_fact = blueprint_st_factor(enc_desc)
-        dec_fact = blueprint_st_factor(dec_desc)
+        # Widths: n_embd enters the encoder, whose output enters the decoder.
+        enc_width = blueprint_out_width(enc_desc, n_embd)
+        dec_width = blueprint_out_width(dec_desc, enc_width)
+        enc_fact = blueprint_st_factor(enc_desc, n_embd)
+        dec_fact = blueprint_st_factor(dec_desc, enc_width)
         assert abs(enc_fact * dec_fact - 1.0) < 1e-6, (
             "The product of the space-time up/down factors must be 1, got "
             f"{enc_fact} * {dec_fact}"
@@ -55,9 +62,9 @@ class LatentAction(nn.Module):
         self.d_codebook = d_codebook
         self.quant_loss_weight = quant_loss_weight
         self.proj_in = CausalConv3d(inp_channels, n_embd, kernel_size=ker_size)
-        self.proj_out = CausalConv3d(n_embd, inp_channels, kernel_size=ker_size)
-        self.enc_layers, self.enc_ext = parse_blueprint(enc_desc, remat=remat)
-        self.dec_layers, self.dec_ext = parse_blueprint(dec_desc, remat=remat)
+        self.proj_out = CausalConv3d(dec_width, inp_channels, kernel_size=ker_size)
+        self.enc_layers, self.enc_ext = parse_blueprint(enc_desc, remat=remat, width=n_embd)
+        self.dec_layers, self.dec_ext = parse_blueprint(dec_desc, remat=remat, width=enc_width)
 
         # Per-frame flattened (h', w', c) -> d_codebook. Frames keep their
         # time axis through the encoder's space factor, so h' w' = h w *
@@ -67,8 +74,7 @@ class LatentAction(nn.Module):
         for layer in self.enc_layers:
             t_fact *= getattr(layer, "t_factor", 1.0)
         area = int(round(h * w * enc_fact / t_fact))
-        width = default(last_out_channels(enc_desc), n_embd)
-        self.to_act = nn.Linear(area * width, d_codebook, bias=False)
+        self.to_act = nn.Linear(area * enc_width, d_codebook, bias=False)
         self.quant = LookupFreeQuantization(
             d_codebook, n_codebook, use_bias=lfq_bias,
             frac_sample=lfq_frac_sample, commit_weight=lfq_commit_weight,

@@ -10,7 +10,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from open_genie_tpu_torch.modules import parse_blueprint
+from open_genie_tpu_torch.modules import blueprint_out_width, parse_blueprint
 from open_genie_tpu_torch.modules.attention import st_attn_cache
 from open_genie_tpu_torch.utils import module_dtype
 
@@ -103,14 +103,12 @@ class DynamicsModel(nn.Module):
     def __init__(self, desc: Any, tok_vocab: int, act_vocab: int, embed_dim: int):
         super().__init__()
         self.desc = desc
-        self.layers, ext = parse_blueprint(desc)
-        if any(ext):
-            raise NotImplementedError(
-                "externally conditioned dynamics layers are not ported yet"
-            )
+        # Layers marked `has_ext` are built and, as in the JAX package, run
+        # with no condition: the trunk has none to give them.
+        self.layers, _ = parse_blueprint(desc, width=embed_dim)
         self.tok_emb = nn.Embedding(tok_vocab, embed_dim)
         self.act_emb = nn.Embedding(act_vocab, embed_dim)
-        self.head = nn.Linear(embed_dim, tok_vocab)
+        self.head = nn.Linear(blueprint_out_width(desc, embed_dim), tok_vocab)
 
     def forward(self, tokens: torch.Tensor, act_id: torch.Tensor) -> torch.Tensor:
         """Full forward: per-position logits `(B, T, H, W, V)`; actions are

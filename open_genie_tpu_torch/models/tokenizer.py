@@ -55,13 +55,15 @@ class VideoTokenizer(nn.Module):
         super().__init__()
         self.enc_desc, self.dec_desc = enc_desc, dec_desc
         self.d_codebook, self.n_codebook = d_codebook, n_codebook
-        self.enc_layers, self.enc_ext = parse_blueprint(enc_desc, remat=remat)
-        self.dec_layers, self.dec_ext = parse_blueprint(dec_desc, remat=remat)
         last_enc = last_out_channels(enc_desc)
         first_dec = _first_in_channels(dec_desc)
         assert last_enc == first_dec, (
             f"Inconsistent encoder/decoder dimensions: {last_enc} vs {first_dec}"
         )
+        # The video's channels are not known at build; the decoder takes
+        # the encoder's width back from the quantizer.
+        self.enc_layers, self.enc_ext = parse_blueprint(enc_desc, remat=remat)
+        self.dec_layers, self.dec_ext = parse_blueprint(dec_desc, remat=remat, width=last_enc)
         self.quant = LookupFreeQuantization(
             d_codebook, n_codebook, input_dim=last_enc, use_bias=lfq_bias,
             frac_sample=lfq_frac_sample, commit_weight=lfq_commit_weight,

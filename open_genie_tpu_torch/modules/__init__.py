@@ -7,7 +7,7 @@ raises an error saying so.
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, List, Tuple, Type
+from typing import Any, Dict, List, Optional, Tuple, Type
 
 import torch
 from torch import nn
@@ -24,7 +24,7 @@ from open_genie_tpu_torch.modules.video import (
     SpaceTimeUpsample,
     VideoResidualBlock,
 )
-from open_genie_tpu_torch.utils import Blueprint
+from open_genie_tpu_torch.utils import Blueprint, cast_tuple
 
 _REGISTRY: Dict[str, Type[nn.Module]] = {
     "space-time_attn": SpaceTimeAttention,
@@ -84,41 +84,78 @@ def remat_class(cls: Type[nn.Module]) -> Type[nn.Module]:
     return type(f"Remat{cls.__name__}", (_Remat, cls), {})
 
 
+# Blueprint kwargs that declare a layer's input width and its output width.
+_IN_WIDTH = ("in_channels", "inp_channel", "in_dim", "num_channels", "d_inp", "n_embd")
+_OUT_WIDTH = ("out_channels", "out_channel", "d_out", "n_embd")
+
+
+def _expand(blueprint: Blueprint, width: Optional[int]) -> Tuple[list, Optional[int]]:
+    """`([(name, kwargs, has_ext), ...], width)`: one entry per layer, with
+    `n_rep` expanded and the kwargs sanitized, and the channel width that
+    leaves the blueprint.
+
+    `width` is the width entering the blueprint (None where the caller
+    cannot know it). The running width follows each layer's declared input
+    width, then its declared output width (norms and activations keep it).
+    A `space-time_attn` that sets neither `d_inp` nor `n_embd` takes the
+    running width as `d_inp`, as the JAX package takes the width of its
+    traced input; where that width is unknown it raises `ValueError`.
+    """
+    layers = []
+    for pos, desc in enumerate(blueprint):
+        name, kwargs = (desc, {}) if isinstance(desc, str) else desc
+        kwargs = dict(kwargs)
+        has_ext = bool(kwargs.pop("has_ext", False))
+        n_rep = int(kwargs.pop("n_rep", 1))
+        kwargs = _sanitize_kwargs(name, kwargs)
+        for _ in range(n_rep):
+            kw = dict(kwargs)
+            width = next((kw[k] for k in _IN_WIDTH if kw.get(k) is not None), width)
+            out = width
+            if name == "space-time_attn":
+                if width is None:
+                    raise ValueError(
+                        f"blueprint layer {pos} ({name}): the width entering it is "
+                        f"unknown; give it d_inp or n_embd"
+                    )
+                if kw.get("d_inp") is None and kw.get("n_embd") is None:
+                    kw["d_inp"] = width
+                out = (cast_tuple(kw.get("n_head", 8), 2)[1]
+                       * cast_tuple(kw.get("d_head", 64), 2)[1])
+            width = next((kw[k] for k in _OUT_WIDTH if kw.get(k) is not None), out)
+            layers.append((name, kw, has_ext))
+    return layers, width
+
+
 def parse_blueprint(
-    blueprint: Blueprint, remat: bool = False
+    blueprint: Blueprint, remat: bool = False, width: Optional[int] = None
 ) -> Tuple[nn.ModuleList, List[bool]]:
     """Expand a blueprint into `(layers, has_ext_flags)`.
 
     String entries mean `(name, {})`; `n_rep` repeats a module; `has_ext`
     marks a layer that takes external conditioning. `remat=True` builds
-    every layer with activation checkpointing (`remat_class`).
+    every layer with activation checkpointing (`remat_class`). `width` is
+    the channel width entering the blueprint (see `_expand`).
     """
     layers, ext = [], []
-    for desc in blueprint:
-        if isinstance(desc, str):
-            desc = (desc, {})
-        name, kwargs = desc
-        kwargs = dict(kwargs)
-        has_ext = bool(kwargs.pop("has_ext", False))
-        n_rep = int(kwargs.pop("n_rep", 1))
+    for name, kwargs, has_ext in _expand(blueprint, width)[0]:
         cls = remat_class(get_module(name)) if remat else get_module(name)
-        kwargs = _sanitize_kwargs(name, kwargs)
-        for _ in range(n_rep):
-            layers.append(cls(**kwargs))
-            ext.append(has_ext)
+        layers.append(cls(**kwargs))
+        ext.append(has_ext)
     return nn.ModuleList(layers), ext
 
 
-def blueprint_st_factor(blueprint: Blueprint) -> float:
+def blueprint_out_width(blueprint: Blueprint, width: Optional[int] = None) -> Optional[int]:
+    """The channel width leaving a blueprint that `width` channels enter."""
+    return _expand(blueprint, width)[1]
+
+
+def blueprint_st_factor(blueprint: Blueprint, width: Optional[int] = None) -> float:
     """Space-time volume factor of a blueprint (the product of its
     resamplers' `st_factor`), from modules built on the meta device."""
     fact = 1.0
-    for desc in blueprint:
-        name, kwargs = (desc, {}) if isinstance(desc, str) else desc
-        kwargs = dict(kwargs)
-        kwargs.pop("has_ext", None)
-        n_rep = int(kwargs.pop("n_rep", 1))
+    for name, kwargs, _ in _expand(blueprint, width)[0]:
         with torch.device("meta"):
-            layer = get_module(name)(**_sanitize_kwargs(name, kwargs))
-        fact *= getattr(layer, "st_factor", 1.0) ** n_rep
+            layer = get_module(name)(**kwargs)
+        fact *= getattr(layer, "st_factor", 1.0)
     return fact

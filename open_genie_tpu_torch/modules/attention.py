@@ -35,7 +35,8 @@ class Attention(nn.Module):
     Optional RoPE (`rope_kind` '1d' or '2d') rotates the query input before
     the norm, at position offset `cache_pos` in decode mode. With `key_dim`
     it is cross-attention: `forward` takes a `key` input of that width,
-    used raw as keys and values.
+    used raw as keys and values, or none, and then its normed input of that
+    width is the key (the JAX package's `default(key, qry)`).
     """
 
     def __init__(
@@ -82,8 +83,6 @@ class Attention(nn.Module):
         return t.view(b, n, self.n_head, self.d_head).transpose(1, 2)
 
     def _cross_qkv(self, x, key):
-        if key is None:
-            raise ValueError("cross-attention (key_dim set) needs a key input")
         if key.shape[-1] != self.key_dim:
             raise ValueError(
                 f"declared key_dim={self.key_dim} but the key input has width "
@@ -109,9 +108,11 @@ class Attention(nn.Module):
         x = self.norm(x)
         b, n, _ = x.shape
         if self.key_dim is not None:
-            if decode:
+            if decode and key is not None:
                 raise ValueError("cached decode does not support cross-attention")
-            q, k, v = self._cross_qkv(x, key)
+            # Without a key input the normed queries are the keys, as in the
+            # JAX package (a dynamics layer marked `has_ext` runs so).
+            q, k, v = self._cross_qkv(x, x if key is None else key)
         else:
             if key is not None:
                 raise ValueError("a key input needs an Attention built with key_dim")
@@ -264,7 +265,9 @@ class SpaceTimeAttention(nn.Module):
     ):
         super().__init__()
         n_head, d_head, embed = _pair(n_head), _pair(d_head), _pair(embed)
-        d_inp = default(default(d_inp, n_embd), n_head[0] * d_head[0])
+        d_inp = default(d_inp, n_embd)
+        if d_inp is None:  # `parse_blueprint` fills it from the width entering the block
+            raise ValueError("SpaceTimeAttention needs its input width: d_inp or n_embd")
         d_out = default(default(d_out, n_embd), n_head[1] * d_head[1])
         space_hid = n_head[0] * d_head[0]
         time_hid = n_head[1] * d_head[1]

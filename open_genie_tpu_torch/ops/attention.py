@@ -1,11 +1,14 @@
 """Scaled dot-product attention: plain path + flash-kernel dispatch.
 
-Twin of `open_genie_tpu.ops.attention`. Every call with no mask and as many
-queries as keys goes to flash attention (kernel K1 on a CUDA tensor, and K3
-and K4 for its gradient; the plain twins on a CPU tensor); every other call
-takes the plain path. The JAX package sends such calls to its Pallas kernel only from 1024
-tokens up, a threshold measured on a TPU; on Hopper the threshold is still
-to be chosen by measurement, so all of them go to the kernel for now.
+Twin of `open_genie_tpu.ops.attention`. A call with no mask, as many
+queries as keys, a head dim the flash kernels take (`HEAD_DIMS`) and f32 or
+bf16 inputs goes to flash attention (kernel K1 on a CUDA tensor, and K3 and
+K4 for its gradient; the plain twins on a CPU tensor); every other call
+takes the plain path, on either device, as the JAX package's XLA path takes
+every call off the TPU. The choice is made from shapes and dtypes before
+any launch. The JAX package sends such calls to its Pallas kernel only from
+1024 tokens up, a threshold measured on a TPU; on Hopper the threshold is
+still to be chosen by measurement, so all of them go to the kernel for now.
 """
 from __future__ import annotations
 
@@ -13,7 +16,11 @@ from typing import Optional
 
 import torch
 
-from open_genie_tpu_torch.ops.kernels.flash_attention import flash_attention_autograd
+from open_genie_tpu_torch.ops.kernels.flash_attention import (
+    DTYPES,
+    HEAD_DIMS,
+    flash_attention_autograd,
+)
 
 
 def dot_product_attention(
@@ -34,7 +41,7 @@ def dot_product_attention(
     nk = k.shape[-2]
     if scale is None:
         scale = d ** -0.5
-    if mask is None and nq == nk:
+    if mask is None and nq == nk and d in HEAD_DIMS and q.dtype in DTYPES:
         qf, kf, vf = (t.reshape(b * h, nq, d).contiguous() for t in (q, k, v))
         return flash_attention_autograd(qf, kf, vf, scale, causal).view(b, h, nq, d)
     return _plain_attention(q, k, v, scale, causal=causal, mask=mask)

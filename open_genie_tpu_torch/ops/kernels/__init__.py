@@ -29,7 +29,7 @@ NVCC_FLAGS = (
 )
 _LIB_NAME = "libopen_genie_kernels.so"
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry point -> argtypes; every entry returns its cudaError_t as int.
 _SIGNATURES = {
     # f32 (CUDA cores) and bf16 (tensor cores), each pair below:
@@ -42,8 +42,8 @@ _SIGNATURES = {
     # q, k, v, dout, lse, delta, dq, bh, n, d, scale, causal, stream
     "flash_attention_bwd_dq": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     "flash_attention_bwd_dq_mma": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
-    # x, w, b, codes, idx, n, c, d, dtype, stream
-    "lfq_head": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # x, w, w strides (c, d), w dtype, b, b dtype, codes, idx, n, c, d, dtype, stream
+    "lfq_head": (_P, _P, _L, _L, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P),
     # x, q, n, d, beta, stream
     "lfq_entropy_fwd": (_P, _P, _I, _I, _F, _P),
     # x, w, part, dx, n, d, beta, splits, stream

@@ -28,7 +28,7 @@ from torch.autograd.function import once_differentiable
 
 from open_genie_tpu_torch.ops import kernels
 
-_DTYPES = (torch.float32, torch.bfloat16)
+DTYPES = (torch.float32, torch.bfloat16)
 HEAD_DIMS = (16, 32, 64, 128)
 VARIANTS = ("mma", "simt")
 _BLOCK_M = 64  # rows per block of the CUDA-core kernels (grid y <= 65535 tiles)
@@ -103,7 +103,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             f"flash_attention takes (BH, N, D) q, k, v of one shape, got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPES:
         raise ValueError(
             f"flash_attention takes float32 or bfloat16, got {q.dtype}, "
             f"{k.dtype}, {v.dtype}"

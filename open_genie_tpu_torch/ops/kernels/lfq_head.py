@@ -64,15 +64,16 @@ def lfq_head(
     n, c = x.shape
     d = w.shape[1]
     lib = kernels.library()
-    w32 = w.float().contiguous()  # the kernel stages W and b as f32
-    b32 = b.float().contiguous()
+    # The kernel stages W (at its strides) and b as f32 from f32 or bf16.
+    w = w if w.dtype in _DTYPES else w.float()
+    b = (b if b.dtype in _DTYPES else b.float()).contiguous()
     codes = torch.empty(n, d, dtype=x.dtype, device=x.device)
     idx = torch.empty(n, dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.lfq_head(
-            x.data_ptr(), w32.data_ptr(), b32.data_ptr(), codes.data_ptr(),
-            idx.data_ptr(), n, c, d, _DTYPES[x.dtype],
-            torch.cuda.current_stream().cuda_stream,
+            x.data_ptr(), w.data_ptr(), w.stride(0), w.stride(1), _DTYPES[w.dtype],
+            b.data_ptr(), _DTYPES[b.dtype], codes.data_ptr(), idx.data_ptr(), n, c, d,
+            _DTYPES[x.dtype], torch.cuda.current_stream().cuda_stream,
         )
     kernels.check(err, "lfq_head")
     lfq_head.launches += 1

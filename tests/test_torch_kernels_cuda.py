@@ -9,7 +9,8 @@ of the f32 result on the same bf16 inputs (2^-7 of each value, one to two
 bf16 ulps, plus 1/32 of the output's RMS: the kernel rounds p and o to
 bf16), its lse within
 1e-4 (exact bf16 products summed in f32 in another order);
-LFQ signs exactly wherever |z| >= 1e-5. The backward kernels K3/K4 against
+LFQ signs exactly wherever |z| >= 1e-5, two calls bit-identical. The
+backward kernels K3/K4 against
 the plain backward on the same inputs and saved forward: f32 atol 1e-4 /
 rtol 1e-5 (sums of up to N terms reordered), bf16 within the same limit as
 K1's o (the twin rounds p and ds where the kernels do). K5/K6
@@ -42,7 +43,7 @@ from open_genie_tpu_torch.ops.kernels.lfq_entropy import (  # noqa: E402
     lfq_avg_probs,
     lfq_entropy_grad,
 )
-from open_genie_tpu_torch.ops.kernels.lfq_head import lfq_head, lfq_head_plain  # noqa: E402
+from open_genie_tpu_torch.ops.kernels.lfq_head import lfq_head  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -96,20 +97,17 @@ def test_flash_attention_kernel(cuda, bh, n, d, causal, dtype):
     assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
 
 
-@pytest.mark.parametrize("n,c,d", [(256, 128, 10), (4096, 512, 18), (7, 3, 31)])
+@pytest.mark.parametrize("n,c,d,offset", chip_smoke.LFQ_HEAD_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_lfq_head_kernel(cuda, n, c, d, dtype):
+def test_lfq_head_kernel(cuda, n, c, d, offset, dtype):
+    """The paths' calls and edges (`chip_smoke.LFQ_HEAD_CASES`): codes and
+    decided rows' ids equal the plain twin's, two calls bit-identical, one
+    launch each."""
     g = torch.Generator(device=cuda).manual_seed(1)
-    x = torch.randn(n, c, generator=g, device=cuda).to(dtype)
-    w = torch.randn(c, d, generator=g, device=cuda) * c ** -0.5
-    b = torch.randn(d, generator=g, device=cuda) * 0.1
-    codes, idx = lfq_head(x, w, b)
-    torch.cuda.synchronize()
-    codes_ref, idx_ref = lfq_head_plain(x, w, b)
-    decided = (x.float() @ w + b).abs() >= 1e-5
-    assert torch.equal(codes[decided], codes_ref[decided])
-    rows = decided.all(dim=1)
-    assert torch.equal(idx[rows], idx_ref[rows])
+    x, w, b = chip_smoke.lfq_head_inputs(g, n, c, d, offset, dtype, cuda)
+    before = lfq_head.launches
+    chip_smoke.lfq_head_check(x, w, b)
+    assert lfq_head.launches == before + 2
 
 
 @pytest.mark.parametrize(

@@ -122,6 +122,42 @@ def test_dot_product_attention_dispatch_matches_plain():
         )
 
 
+# float16 against XLA's float16 path: the same f32 logits and sums, then the
+# probabilities and the output rounded to float16 (2^-11 of a value near 1).
+F16_TOL = dict(atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d,dtype", [(8, torch.float32), (48, torch.float32),
+                                     (16, torch.float16)])
+def test_attention_outside_the_flash_kernels_matches_xla(d, dtype, causal):
+    """Head dims the flash kernels do not take, and float16, take the plain
+    path on any device, as the JAX package's XLA path takes them."""
+    q, k, v = (_rand(s, 2, 3, 17, d) for s in (19, 20, 21))
+    jdtype = jnp.float16 if dtype == torch.float16 else jnp.float32
+    ref = jattn._xla_attention(*(jnp.asarray(t, jdtype) for t in (q, k, v)), d ** -0.5,
+                               causal=causal)
+    out = tattn.dot_product_attention(*(torch.from_numpy(t).to(dtype) for t in (q, k, v)),
+                                      causal=causal)
+    assert out.dtype == dtype
+    np.testing.assert_allclose(_np(out), np.asarray(ref, np.float32),
+                               **(F16_TOL if dtype == torch.float16 else OP_TOL))
+
+
+def test_attention_gradient_at_head_dim_8_matches_xla():
+    q, k, v = (_rand(s, 2, 3, 17, 8) for s in (22, 23, 24))
+    w = _rand(25, 2, 3, 17, 8)
+
+    def jloss(q, k, v):
+        return (jattn._xla_attention(q, k, v, 8 ** -0.5, causal=True) * w).sum()
+
+    ref = jax.grad(jloss, argnums=(0, 1, 2))(q, k, v)
+    qt, kt, vt = (torch.from_numpy(t).requires_grad_() for t in (q, k, v))
+    (tattn.dot_product_attention(qt, kt, vt, causal=True) * torch.from_numpy(w)).sum().backward()
+    for got, want in zip((qt.grad, kt.grad, vt.grad), ref):
+        np.testing.assert_allclose(_np(got), np.asarray(want), **OP_TOL)
+
+
 def _pallas_flash(q, k, v, scale, causal):
     """`_flash_forward` in interpret mode, padded to its block grid the way
     its wrapper `flash_attention` pads (it returns `o` only)."""
