@@ -42,9 +42,11 @@ Phases, in order (any failure raises and the exit code is non-zero):
      the tensor cores, at the shapes that phases 3 and 7 checked), ms per
      step and peak memory;
  10. kernels K5 and K6 (LFQ entropy over 2^d codes, forward and gradient)
-     against their plain twins at d 13 and 18, gentle and trained feature
-     scales, ragged token counts; determinism; both times at (512, 18) as
-     CUDA graphs, the eager calls beside; then K1, K3 and K4 at head dim 32
+     against their plain twins at d 13, 15, 18 and 21, gentle and trained
+     feature scales, ragged token counts, and against a float64 sweep over
+     every code at (512, 18); determinism; both times at (512, 18) as CUDA
+     graphs beside the twins and the same algorithm on stock f32 matmuls,
+     the eager calls beside; then K1, K3 and K4 at head dim 32
      at the frame discriminator's two calls in full, and each one's time
      beside PyTorch's calls;
  11. one compact tokenizer training step on the card against the same step
@@ -689,12 +691,58 @@ def phase_flash_bwd(dev) -> tuple:
              "max_abs_err_f32": err_f32, **rows["flash_attention_bwd_dq"]})
 
 
+def lfq_sweep_f64(x, w, beta: float, chunk: int = 4096) -> tuple:
+    """`q` and `2 beta (tanh(2 beta x) S - T)` of `(n, d)` features and
+    `(2^d,)` weights in float64 over every code, chunk by chunk, by the
+    Pallas kernels' formula `2 beta <x, c> - logZ` (its cancellation costs
+    about 1e-12 in float64): a check of K5/K6 that shares nothing with the
+    factorized twins."""
+    n, d = x.shape
+    chunk = min(chunk, 2 ** d)
+    a = 2.0 * beta * x.double()
+    log_z = (a.abs() + torch.log1p(torch.exp(-2.0 * a.abs()))).sum(-1, keepdim=True)
+    shifts = torch.arange(d - 1, -1, -1, device=x.device)
+    q = torch.empty(2 ** d, dtype=torch.float64, device=x.device)
+    s = torch.zeros(n, 1, dtype=torch.float64, device=x.device)
+    t = torch.zeros(n, d, dtype=torch.float64, device=x.device)
+    for start in range(0, 2 ** d, chunk):
+        j = torch.arange(start, start + chunk, device=x.device)
+        codes = 2.0 * ((j[:, None] >> shifts) & 1).double() - 1.0
+        p = torch.exp(a @ codes.T - log_z)
+        q[start:start + chunk] = p.mean(0)
+        pw = p * w[start:start + chunk].double()
+        s += pw.sum(1, keepdim=True)
+        t += pw @ codes
+    return q, 2.0 * beta * (torch.tanh(a) * s - t)
+
+
+def lfq_entropy_bounds(n: int, d: int) -> tuple:
+    """`bound` of K5 and K6 at `(n, d)` for the factorized work: the tables'
+    adds (dh per high entry, dl per low one) and n (2^dh + 2^dl)
+    exponentials, then 2 n 2^d flops in K5's product and 4 n 2^d in K6's
+    two; x and q, or x, w and dx, cross memory once. Beside each,
+    `sweep_bound_ms`: the bound of the sweep over every (token, code) pair
+    that the kernels did before (d adds and one exp a pair for K5, 3 d for
+    K6)."""
+    dh, dl = (d + 1) // 2, d // 2
+    table_adds, exps = n * (dh * 2 ** dh + dl * 2 ** dl), n * (2 ** dh + 2 ** dl)
+    pairs = n * 2 ** d
+    k5 = bound(2 * pairs + table_adds, 4 * (n * d + 2 ** d), PEAK_F32_FLOPS, exps=exps)
+    k6 = bound(4 * pairs + table_adds, 4 * (2 * n * d + 2 ** d), PEAK_F32_FLOPS, exps=exps)
+    k5["sweep_bound_ms"] = bound(d * pairs, 4 * (n * d + 2 ** d), PEAK_F32_FLOPS)["bound_ms"]
+    k6["sweep_bound_ms"] = bound(3 * d * pairs, 4 * (2 * n * d + 2 ** d),
+                                 PEAK_F32_FLOPS)["bound_ms"]
+    return k5, k6
+
+
 def phase_lfq_entropy(dev) -> tuple:
-    """K5 and K6 against their plain twins on the same inputs, at the
-    tokenizer's codebooks (d 13 and 18) and token counts (512, ragged 1000
-    and 33), gentle (beta 5) and trained (beta 100, |x| about 1 and 3);
-    determinism; both times at the full-width call (512, 18). Then K1, K3
-    and K4 at head dim 32, the frame discriminator's."""
+    """K5 and K6 against their plain twins on the same inputs, at d 13, 15,
+    18 and 21 and token counts 512 (the tokenizer's), ragged 1000 and 33,
+    gentle (beta 5) and trained (beta 100, |x| about 1 and 3); against a
+    float64 sweep over every code at (512, 18), beta 100, |x| about 1 and 3;
+    determinism; bf16 features; both times at the full-width call (512, 18)
+    beside the twins and the same algorithm on stock f32 matmuls. Then K1,
+    K3 and K4 at head dim 32, the frame discriminator's."""
     from open_genie_tpu_torch.ops.kernels.lfq_entropy import (
         avg_probs_plain,
         entropy_grad_plain,
@@ -703,6 +751,7 @@ def phase_lfq_entropy(dev) -> tuple:
         lfq_entropy_grad,
     )
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(SEED + 9)
     eps = 1e-6
 
@@ -710,7 +759,7 @@ def phase_lfq_entropy(dev) -> tuple:
         return torch.where(q > eps, 1.0 + torch.log(q.clamp_min(eps)), math.log(eps))
 
     errs = {"q": 0.0, "q_rel": 0.0, "dx": 0.0, "dx_cos": 1.0}
-    for d in (13, 18):
+    for d in (13, 15, 18, 21):
         for n in (512, 1000, 33):
             for beta, scale in ((5.0, 0.1), (100.0, 1.0), (100.0, 3.0)):
                 x = torch.randn(n, d, generator=g, device=dev) * scale
@@ -735,6 +784,18 @@ def phase_lfq_entropy(dev) -> tuple:
                 errs["q_rel"] = max(errs["q_rel"], e_q)
                 errs["dx"] = max(errs["dx"], (dx - dx_ref).abs().max().item())
                 errs["dx_cos"] = min(errs["dx_cos"], cos)
+    for scale in (1.0, 3.0):
+        x = torch.randn(512, 18, generator=g, device=dev) * scale
+        q = lfq_avg_probs(x, 100.0)
+        w = weights(q)
+        q_ref, dx_ref = lfq_sweep_f64(x, w, 100.0)
+        e_q = ((q.double() - q_ref).abs().max() / q_ref.max()).item()
+        e_dx = ((lfq_entropy_grad(x, w, 100.0).double() - dx_ref).abs().max()
+                / dx_ref.abs().max()).item()
+        print(f"[K5/K6 float64 sweep] (n,d)=(512,18) beta=100 |x|~{scale}: q off by {e_q:.3g} "
+              f"of max q, dx by {e_dx:.3g} of max|dx|")
+        assert e_q <= 1e-5 and e_dx <= 1e-4, "K5/K6 disagree with the float64 sweep"
+        errs[f"sweep_q_rel_x{scale:g}"], errs[f"sweep_dx_rel_x{scale:g}"] = e_q, e_dx
     x = torch.randn(512, 18, generator=g, device=dev)
     xb = x.bfloat16()
     torch.testing.assert_close(lfq_avg_probs(xb, 100.0), lfq_avg_probs(xb.float(), 100.0),
@@ -746,34 +807,42 @@ def phase_lfq_entropy(dev) -> tuple:
     print("[K5/K6] bf16 features give the f32 result of their values; two calls at "
           "(512,18) bit-identical q and dx")
     # Each as CUDA graphs (device time without the host's launch of the
-    # wrapper's casts and the kernel), the eager call beside.
+    # wrapper's casts and the kernel), the eager call beside. No one PyTorch
+    # call computes either function: `library_ms` is the same factorized
+    # algorithm on stock ops, the tables elementwise and the products as f32
+    # torch.matmul with TF32 off, a composite of several calls.
     k5 = in_turns(lambda: avg_probs_plain(x, 100.0), lambda: lfq_avg_probs(x, 100.0),
-                  plain_iters=5, graph=True)
+                  plain_iters=5, graph=True,
+                  library=lambda: avg_probs_plain(x, 100.0, dtype=torch.float32))
     k6 = in_turns(lambda: entropy_grad_plain(x, w, 100.0), lambda: lfq_entropy_grad(x, w, 100.0),
-                  plain_iters=5, graph=True)
+                  plain_iters=5, graph=True,
+                  library=lambda: entropy_grad_plain(x, w, 100.0, dtype=torch.float32))
     k5["eager_ms"] = cuda_ms(lambda: lfq_avg_probs(x, 100.0))
     k6["eager_ms"] = cuda_ms(lambda: lfq_entropy_grad(x, w, 100.0))
     _release_capture_stream()
-    # Per (token, code) pair one exponential and d adds (K5), 3 d with the
-    # per-bit sums (K6), in f32 on the CUDA cores; x and q, or x, w and dx,
-    # cross memory once. No one PyTorch call forms the 2^18 structured
-    # logits and their softmax.
-    pairs = 512 * 2 ** 18
-    k5.update(bound(18 * pairs, 4 * (512 * 18 + 2 ** 18), PEAK_F32_FLOPS, exps=pairs))
-    k6.update(bound(3 * 18 * pairs, 4 * (2 * 512 * 18 + 2 ** 18), PEAK_F32_FLOPS, exps=pairs))
+    b5, b6 = lfq_entropy_bounds(512, 18)
+    k5.update(b5)
+    k6.update(b6)
+    library = "composite: tables + f32 torch.matmul, TF32 off"
+    k5["library"] = k6["library"] = library
     print(f"[K5/K6 time] (n,d)=(512,18) f32, CUDA graphs: K5 {k5['ms']:.4f} ms, plain "
-          f"{k5['plain_ms']:.4f} ms, bound {k5['bound_ms']:.4f} ms ({k5['bound_by']}); K6 "
-          f"{k6['ms']:.4f} ms, plain {k6['plain_ms']:.4f} ms, bound {k6['bound_ms']:.4f} ms "
-          f"({k6['bound_by']}); exponentials {k5['exp_floor_ms']:.4f} ms each; eager calls "
-          f"K5 {k5['eager_ms']:.4f} ms, K6 {k6['eager_ms']:.4f} ms")
+          f"{k5['plain_ms']:.4f} ms, library {k5['library_ms']:.4f} ms, bound "
+          f"{k5['bound_ms']:.4f} ms ({k5['bound_by']}), sweep's bound "
+          f"{k5['sweep_bound_ms']:.4f} ms; K6 {k6['ms']:.4f} ms, plain {k6['plain_ms']:.4f} ms, "
+          f"library {k6['library_ms']:.4f} ms, bound {k6['bound_ms']:.4f} ms "
+          f"({k6['bound_by']}), sweep's bound {k6['sweep_bound_ms']:.4f} ms; exponentials "
+          f"{k5['exp_floor_ms']:.6f} ms each; eager calls K5 {k5['eager_ms']:.4f} ms, "
+          f"K6 {k6['eager_ms']:.4f} ms ({library})")
     _flash_head_dim_32(dev)
-    common = {"route": "cuda", "variant": "simt",
+    common = {"route": "cuda", "variant": "factorized",
               "source": "open_genie_tpu_torch/csrc/lfq_entropy.cu", "shape": [512, 18]}
     return ({"name": "lfq_entropy_fwd", **common, "max_abs_err": errs["q"],
-             "max_rel_err": errs["q_rel"], **k5,
+             "max_rel_err": errs["q_rel"], "sweep_rel_err": [errs["sweep_q_rel_x1"],
+                                                             errs["sweep_q_rel_x3"]], **k5,
              "replaces": "open_genie_tpu/ops/pallas/lfq_entropy.py:41"},
             {"name": "lfq_entropy_bwd", **common, "max_abs_err": errs["dx"],
-             "min_cos": errs["dx_cos"], **k6,
+             "min_cos": errs["dx_cos"], "sweep_rel_err": [errs["sweep_dx_rel_x1"],
+                                                          errs["sweep_dx_rel_x3"]], **k6,
              "replaces": "open_genie_tpu/ops/pallas/lfq_entropy.py:74"})
 
 

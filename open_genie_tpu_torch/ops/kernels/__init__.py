@@ -44,10 +44,10 @@ _SIGNATURES = {
     "flash_attention_bwd_dq_mma": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     # x, w, w strides (c, d), w dtype, b, b dtype, codes, idx, n, c, d, dtype, stream
     "lfq_head": (_P, _P, _L, _L, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P),
-    # x, q, n, d, beta, stream
-    "lfq_entropy_fwd": (_P, _P, _I, _I, _F, _P),
-    # x, w, part, dx, n, d, beta, splits, stream
-    "lfq_entropy_bwd": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
+    # x, tables, q, n, d, beta, stream
+    "lfq_entropy_fwd": (_P, _P, _P, _I, _I, _F, _P),
+    # x, w, scratch, dx, n, d, beta, stream
+    "lfq_entropy_bwd": (_P, _P, _P, _P, _I, _I, _F, _P),
 }
 
 

@@ -9,24 +9,36 @@ K5 replaces `open_genie_tpu/ops/pallas/lfq_entropy.py::_fwd_kernel`
 feature 0 as its most significant bit. `LfqAvgEntropy` ties them into one
 `torch.autograd.Function` (the JAX package's `custom_vjp`).
 
-Both work from per-token terms written so that nothing cancels. With
-`a = 2 beta x` and `s_bi = +1` iff `x_bi > 0` (the index's bit convention),
+Both rest on the factorization of each token's distribution over the bits:
+`p_bj = prod_i sigmoid(4 beta x_bi c_ji)` exactly, since `logZ_b` is a sum
+over the bits. The d bits split into a high half of `dh = ceil(d/2)` bits
+(features `0 .. dh-1`) and a low half of `dl = floor(d/2)`; code
+`j = h 2^dl + l` has `p_bj = H_b[h] L_b[l]` with `(n, 2^dh)` and `(n, 2^dl)`
+tables (`half_tables`). Then `q = H^T L / n`; and with `W` the weights as a
+`(2^dh, 2^dl)` matrix, `G = L W^T` and `F = H W`, the sums of `p_bj w_j`
+over the codes with bit i set (`P`) or clear (`N`) are sums over one table
+axis of `H G` (high bits) or `L F` (low bits).
 
-    log p_bj = -sum_{i: c_ji != s_bi} 2|a_bi| - sum_i log1p(exp(-2|a_bi|)),
+Nothing cancels. With `a = 2 beta x` and `s_bi = +1` iff `x_bi > 0` (the
+index's bit convention), each table entry is the exp of a sum of
+non-positive terms,
+
+    log H_b[h] = -sum_{i high: c_hi != s_bi} 2|a_bi| - sum_{i high} log1p(exp(-2|a_bi|)),
 
 the closed-form `logZ_b = sum_i |a_bi| + log1p(exp(-2|a_bi|))` already
-subtracted term by term: every term is non-positive. The Pallas kernels form
-`2 beta <x, c>` and `logZ` apart, both thousands at beta = 100, and need f32
-HIGHEST dot products to keep their difference. Likewise
-`tanh(a_bi) - c_ji` is `s_bi (1 + t)` where bit i mismatches and
-`-s_bi (1 - t)` where it matches (`t = tanh|a_bi|`, `1 - t = 2e / (1 + e)`,
-`e = exp(-2|a_bi|)`), so K6 sums `p_bj w_j` per bit over the codes with the
-bit set (`P`) and clear (`N`) and never subtracts `T` from `tanh(a) S`.
+subtracted term by term. The Pallas kernels form `2 beta <x, c>` and `logZ`
+apart, both thousands at beta = 100, and need f32 HIGHEST dot products to
+keep their difference. Likewise `tanh(a_bi) - c_ji` is `s_bi (1 + t)` where
+bit i mismatches and `-s_bi (1 - t)` where it matches (`t = tanh|a_bi|`,
+`1 - t = 2e / (1 + e)`, `e = exp(-2|a_bi|)`), so K6 combines `P` and `N`
+and never subtracts `T` from `tanh(a) S`.
 
 Each wrapper dispatches by device: a CPU tensor goes to the plain PyTorch
 twin, a CUDA tensor launches the kernel (or raises), any other device
-raises. The twins are the kernels' algorithm chunked over the codebook in
-true f32 (broadcast sums, no matmul, so no TF32 setting reaches them).
+raises. The kernels take d from 13 to 24. The twins are the kernels'
+algorithm: the same split, the same table terms in f32, the same index
+order; their products and per-bit sums run in float64 and are cast back to
+f32, so no TF32 setting reaches them.
 """
 from __future__ import annotations
 
@@ -38,10 +50,7 @@ from torch.autograd.function import once_differentiable
 
 from open_genie_tpu_torch.ops import kernels
 
-KERNEL_BITS = (13, 18)  # the codebooks of the tokenizer configurations (LFQ_ENTROPY_BITS)
-_CHUNK = 4096  # codes per step of the plain twins
-_BWD_TOKENS = 128  # tokens per K6 block (csrc/lfq_entropy.cu kBwdThreads)
-_BWD_CODES = 256  # codes K6 stages per pass (kBwdCodes)
+MIN_BITS, MAX_BITS = 13, 24  # the kernels' codebooks: 2^13 to 2^24 codes
 
 
 def token_terms(x: torch.Tensor, beta: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -54,47 +63,60 @@ def token_terms(x: torch.Tensor, beta: float) -> Tuple[torch.Tensor, torch.Tenso
     return xf > 0, two_abs, torch.log1p(torch.exp(-two_abs)).sum(-1)
 
 
-def _code_bits(start: int, count: int, d: int, device) -> torch.Tensor:
-    """`(count, d)` bool: bit i of codes `start ...`, MSB first (c = +1)."""
-    j = torch.arange(start, start + count, device=device, dtype=torch.int64)
-    shifts = torch.arange(d - 1, -1, -1, device=device)
+def halves(d: int) -> Tuple[int, int]:
+    """Bits of the high and the low half of a d-bit code."""
+    return (d + 1) // 2, d // 2
+
+
+def _code_bits(count: int, bits: int, device) -> torch.Tensor:
+    """`(count, bits)` bool: the bits of codes `0 .. count-1`, MSB first."""
+    j = torch.arange(count, device=device, dtype=torch.int64)
+    shifts = torch.arange(bits - 1, -1, -1, device=device)
     return ((j[:, None] >> shifts) & 1).bool()
 
 
-def _chunk_log_p(pos, two_abs, rest, bits) -> torch.Tensor:
-    """`(n, chunk)` log p of the codes `bits` from the per-token terms."""
-    mism = bits[None] != pos[:, None]
-    return -torch.where(mism, two_abs[:, None], 0.0).sum(-1) - rest[:, None]
+def half_tables(x: torch.Tensor, beta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 tables `(H, L)`, `(n, 2^dh)` and `(n, 2^dl)`, of `(n, d)`
+    features: `p_bj = H_b[j >> dl] L_b[j & (2^dl - 1)]`. Each entry is the
+    exp of minus its half's mismatched `two_abs` and its half's
+    `log1p(exp(-two_abs))` terms (`token_terms`)."""
+    dh = halves(x.shape[1])[0]
+    pos, two_abs, _ = token_terms(x, beta)
+    log_terms = torch.log1p(torch.exp(-two_abs))
+    tables = []
+    for half in (slice(0, dh), slice(dh, None)):
+        p, v = pos[:, half], two_abs[:, half]
+        mism = _code_bits(2 ** p.shape[1], p.shape[1], x.device)[None] != p[:, None]
+        s = torch.where(mism, v[:, None], 0.0).sum(-1)
+        tables.append(torch.exp(-s - log_terms[:, half].sum(-1, keepdim=True)))
+    return tables[0], tables[1]
 
 
-def avg_probs_plain(x: torch.Tensor, beta: float) -> torch.Tensor:
-    """Plain twin of K5: `(2^d,)` f32 `q` of `(n, d)` features."""
-    n, d = x.shape
-    pos, two_abs, rest = token_terms(x, beta)
-    num_codes = 2 ** d
-    chunk = min(_CHUNK, num_codes)
-    q = torch.empty(num_codes, dtype=torch.float32, device=x.device)
-    for start in range(0, num_codes, chunk):
-        bits = _code_bits(start, chunk, d, x.device)
-        q[start:start + chunk] = torch.exp(_chunk_log_p(pos, two_abs, rest, bits)).sum(0) / n
-    return q
+def avg_probs_plain(x: torch.Tensor, beta: float, dtype=torch.float64) -> torch.Tensor:
+    """Plain twin of K5: `(2^d,)` f32 `q` of `(n, d)` features, `H^T L / n`
+    with the product in `dtype` (float64; float32 only to time the same
+    algorithm on stock matmuls)."""
+    hi, lo = (t.to(dtype) for t in half_tables(x, beta))
+    return (hi.T @ lo / x.shape[0]).float().flatten()
 
 
-def entropy_grad_plain(x: torch.Tensor, w: torch.Tensor, beta: float) -> torch.Tensor:
+def entropy_grad_plain(x: torch.Tensor, w: torch.Tensor, beta: float,
+                       dtype=torch.float64) -> torch.Tensor:
     """Plain twin of K6: `(n, d)` f32 `2 beta (tanh(2 beta x) S - T)` for
-    `(n, d)` features and `(2^d,)` weights `w`."""
-    n, d = x.shape
-    pos, two_abs, rest = token_terms(x, beta)
-    num_codes = 2 ** d
-    chunk = min(_CHUNK, num_codes)
-    p_sum = torch.zeros(n, d, device=x.device)  # over codes with bit i set
-    n_sum = torch.zeros(n, d, device=x.device)  # over codes with bit i clear
-    for start in range(0, num_codes, chunk):
-        bits = _code_bits(start, chunk, d, x.device)
-        pw = torch.exp(_chunk_log_p(pos, two_abs, rest, bits)) * w[start:start + chunk].float()
-        p_sum += torch.where(bits[None], pw[:, :, None], 0.0).sum(1)
-        n_sum += torch.where(bits[None], 0.0, pw[:, :, None]).sum(1)
-    return 2.0 * beta * _combine(pos, two_abs, p_sum, n_sum)
+    `(n, d)` features and `(2^d,)` weights `w`; the products and per-bit sums
+    in `dtype`, as `avg_probs_plain`."""
+    dh, dl = halves(x.shape[1])
+    pos, two_abs, _ = token_terms(x, beta)
+    hi, lo = (t.to(dtype) for t in half_tables(x, beta))
+    wm = w.to(dtype).view(2 ** dh, 2 ** dl)
+    p_sum, n_sum = [], []
+    for table, prod, k in ((hi, lo @ wm.T, dh), (lo, hi @ wm, dl)):  # (H, G), (L, F)
+        bits = _code_bits(2 ** k, k, x.device).to(dtype)
+        v = table * prod
+        p_sum.append(v @ bits)        # over codes with the bit set
+        n_sum.append(v @ (1.0 - bits))  # and clear
+    return 2.0 * beta * _combine(pos, two_abs, torch.cat(p_sum, -1).float(),
+                                 torch.cat(n_sum, -1).float())
 
 
 def _combine(pos, two_abs, p_sum, n_sum) -> torch.Tensor:
@@ -119,9 +141,9 @@ def _on_cuda(x: torch.Tensor, name: str) -> bool:
         return False
     if x.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {x.device}")
-    if x.shape[1] not in KERNEL_BITS:
-        raise ValueError(
-            f"{name}: the kernel takes d in {KERNEL_BITS}, got d={x.shape[1]}")
+    if not MIN_BITS <= x.shape[1] <= MAX_BITS:
+        raise ValueError(f"{name}: the kernel takes d from {MIN_BITS} to {MAX_BITS} "
+                         f"(2^{MAX_BITS} codes at most), got d={x.shape[1]}")
     return True
 
 
@@ -134,10 +156,12 @@ def lfq_avg_probs(x: torch.Tensor, beta: float) -> torch.Tensor:
     n, d = x.shape
     lib = kernels.library()
     xf = x.float().contiguous()
+    tables = torch.empty(n * sum(2 ** k for k in halves(d)), dtype=torch.float32,
+                         device=x.device)
     q = torch.empty(2 ** d, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.lfq_entropy_fwd(
-            xf.data_ptr(), q.data_ptr(), n, d, float(beta),
+            xf.data_ptr(), tables.data_ptr(), q.data_ptr(), n, d, float(beta),
             torch.cuda.current_stream().cuda_stream,
         )
     kernels.check(err, "lfq_entropy_fwd")
@@ -148,21 +172,10 @@ def lfq_avg_probs(x: torch.Tensor, beta: float) -> torch.Tensor:
 lfq_avg_probs.launches = 0
 
 
-def grad_splits(n: int, d: int, sms: int) -> int:
-    """Code splits of K6: a power of two, so that the grid of token tiles x
-    splits fills about four blocks per SM while every split keeps at least
-    one staged pass of codes."""
-    tiles = -(-n // _BWD_TOKENS)
-    splits = 1
-    while tiles * splits * 2 <= 4 * sms and (2 ** d) // (splits * 2) >= _BWD_CODES:
-        splits *= 2
-    return splits
-
-
 def lfq_entropy_grad(x: torch.Tensor, w: torch.Tensor, beta: float) -> torch.Tensor:
     """Kernel K6: `(n, d)` f32 `2 beta (tanh(2 beta x) S - T)` for `(n, d)`
-    features and `(2^d,)` f32 code weights `w`. Partial sums per code split
-    are reduced in a fixed order, so two calls agree bit for bit."""
+    features and `(2^d,)` f32 code weights `w`. Every sum runs in a fixed
+    order, so two calls agree bit for bit."""
     _check(x, "lfq_entropy_grad")
     n, d = x.shape
     if w.shape != (2 ** d,) or w.device != x.device:
@@ -171,13 +184,14 @@ def lfq_entropy_grad(x: torch.Tensor, w: torch.Tensor, beta: float) -> torch.Ten
         return entropy_grad_plain(x, w, beta)
     lib = kernels.library()
     xf, wf = x.float().contiguous(), w.float().contiguous()
-    splits = grad_splits(n, d, torch.cuda.get_device_properties(x.device).multi_processor_count)
-    part = torch.empty(splits, n, 2 * d, dtype=torch.float32, device=x.device)
+    # The tables H and L, then the products G and F.
+    scratch = torch.empty(2 * n * sum(2 ** k for k in halves(d)), dtype=torch.float32,
+                          device=x.device)
     dx = torch.empty(n, d, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = lib.lfq_entropy_bwd(
-            xf.data_ptr(), wf.data_ptr(), part.data_ptr(), dx.data_ptr(), n, d,
-            float(beta), splits, torch.cuda.current_stream().cuda_stream,
+            xf.data_ptr(), wf.data_ptr(), scratch.data_ptr(), dx.data_ptr(), n, d,
+            float(beta), torch.cuda.current_stream().cuda_stream,
         )
     kernels.check(err, "lfq_entropy_bwd")
     lfq_entropy_grad.launches += 1

@@ -14,11 +14,11 @@ backward kernels K3/K4 against
 the plain backward on the same inputs and saved forward: f32 atol 1e-4 /
 rtol 1e-5 (sums of up to N terms reordered), bf16 within the same limit as
 K1's o (the twin rounds p and ds where the kernels do). K5/K6
-against their twins, which use the same cancellation-free formulation: q
-within 1e-5 of max q (f32 sums over the tokens reordered); the entropy
-gradient dx / n within atol 2e-4 / rtol 2e-2 and at cosine above 0.99999
-(its sums over 2^d codes of p w, whose w change sign, reordered); two calls
-bit-identical.
+against their twins, which use the same factorized, cancellation-free
+algorithm with the products in float64: q within 1e-5 of max q (f32 sums
+over the tokens); the entropy gradient dx / n within atol 2e-4 / rtol 2e-2
+and at cosine above 0.99999 (f32 sums of p w, whose w change sign); two
+calls bit-identical.
 """
 import math
 
@@ -173,7 +173,7 @@ def test_attention_gradients_reach_inputs_on_the_card(cuda):
         torch.testing.assert_close(a, t.grad, atol=1e-4, rtol=1e-5)
 
 
-@pytest.mark.parametrize("n,d", [(512, 18), (1000, 13), (33, 18)])
+@pytest.mark.parametrize("n,d", [(512, 18), (1000, 13), (33, 18), (512, 15), (33, 24)])
 @pytest.mark.parametrize("beta,scale", [(5.0, 0.1), (100.0, 1.0), (100.0, 3.0)])
 def test_lfq_entropy_kernels(cuda, n, d, beta, scale):
     g = torch.Generator(device=cuda).manual_seed(4)
@@ -196,8 +196,8 @@ def test_lfq_entropy_kernels(cuda, n, d, beta, scale):
 
 
 def test_lfq_entropy_kernels_refuse_what_they_do_not_take(cuda):
-    for d in (12, 14):  # built for the configurations' codebooks, 13 and 18 bits
-        with pytest.raises(ValueError, match="d in"):
+    for d in (12, 25):  # the kernels take 13 to 24 bits
+        with pytest.raises(ValueError, match="d from 13 to 24"):
             lfq_avg_probs(torch.zeros(8, d, device=cuda), 10.0)
     with pytest.raises(ValueError, match="shape"):
         lfq_entropy_grad(torch.zeros(8, 13, device=cuda), torch.zeros(10, device=cuda), 10.0)

@@ -2,14 +2,20 @@
 plain twins) and the LFQ loss, against the JAX package on the CPU.
 
 The oracles are the Pallas kernels in interpret mode
-(`lfq_avg_entropy_pallas`, its `_avg_probs_fwd` and its `jax.grad`) and the
-JAX `lfq_loss`. The port forms each codeword's log-probability as a sum of
-non-positive terms, so it carries no cancellation error; the Pallas kernel
-subtracts two f32 numbers of about `2 beta sum|x|`. At beta = 100 and |x|
-about 3 that leaves the Pallas `q` up to 8.6e-4 of max q away from a
-float64 evaluation (the port: 3e-8). Tolerances: `q` and H within 1e-3
-relative (`q` relative to its largest entry); the gradient within atol
-2e-4 / rtol 2e-2 at beta = 5 and at cosine above 0.999 at beta = 100.
+(`lfq_avg_entropy_pallas`, its `_avg_probs_fwd` and its `jax.grad`), the JAX
+`lfq_loss`, and a float64 sweep over every code by the Pallas kernels'
+formula `2 beta <x, c> - logZ` (`chip_smoke.lfq_sweep_f64`, whose
+cancellation costs about 1e-12 in float64). The port factors each token's distribution into a table
+over the high bits and one over the low bits and forms each table entry as
+a sum of non-positive terms, so it carries no cancellation error; the
+Pallas kernel subtracts two f32 numbers of about `2 beta sum|x|`. At beta
+= 100 and |x| about 3 that leaves the Pallas `q` up to 8.6e-4 of max q away
+from a float64 evaluation (the port: 3e-8). Tolerances: `q` and H within
+1e-3 relative (`q` relative to its largest entry) of the Pallas kernels;
+the gradient within atol 2e-4 / rtol 2e-2 at beta = 5 and at cosine above
+0.999 at beta = 100; against the float64 sweep, `q` within 1e-6 of max q
+(f32 tables: a few ulps of each entry's exponent) and the gradient within
+1e-4 of its largest entry.
 """
 import numpy as np
 import pytest
@@ -18,6 +24,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+import chip_smoke  # noqa: E402  (the float64 sweep the card checks K5/K6 with)
 from open_genie_tpu.ops import lfq as jlfq  # noqa: E402
 from open_genie_tpu.ops.pallas.lfq_entropy import (  # noqa: E402
     _avg_probs_fwd,
@@ -29,7 +36,8 @@ from open_genie_tpu_torch.ops.kernels.lfq_entropy import (  # noqa: E402
     LfqAvgEntropy,
     avg_probs_plain,
     entropy_grad_plain,
-    grad_splits,
+    half_tables,
+    halves,
     lfq_avg_probs,
     lfq_entropy_grad,
     token_terms,
@@ -37,12 +45,24 @@ from open_genie_tpu_torch.ops.kernels.lfq_entropy import (  # noqa: E402
 
 torch.set_num_threads(1)
 EPS = 1e-6
-# (n, d, beta, scale): the cases of tests/test_lfq_pallas.py.
-CASES = [(64, 8, 5.0, 0.2), (33, 8, 5.0, 0.1), (128, 13, 100.0, 1.0), (128, 13, 100.0, 3.0)]
+# (n, d, beta, scale): the cases of tests/test_lfq_pallas.py, then both
+# parities of the high/low split beyond 13 bits. At d = 17, beta = 100 and
+# |x| about 3 the Pallas q is itself 2.3e-3 of max q off the float64 sweep,
+# beyond the 1e-3 pin: that case is held to the sweep below.
+CASES = [(64, 8, 5.0, 0.2), (33, 8, 5.0, 0.1), (128, 13, 100.0, 1.0), (128, 13, 100.0, 3.0),
+         (64, 14, 5.0, 0.2), (96, 14, 100.0, 1.0), (64, 17, 5.0, 0.1), (64, 17, 100.0, 1.0)]
 
 
 def _x(n, d, scale, seed=0):
     return (np.random.default_rng(seed).standard_normal((n, d)) * scale).astype(np.float32)
+
+
+def _sweep_f64(x, beta, w=None):
+    """`q` (and, given weights `w`, `2 beta (tanh(2 beta x) S - T)`) of
+    `(n, d)` numpy features in float64 over every code, as numpy arrays."""
+    weights = torch.zeros(2 ** x.shape[1]) if w is None else torch.from_numpy(w)
+    q, dx = chip_smoke.lfq_sweep_f64(torch.from_numpy(x), weights, beta)
+    return q.numpy() if w is None else (q.numpy(), dx.numpy())
 
 
 def _pallas(x, beta):
@@ -122,12 +142,42 @@ def test_dispatch_by_device():
         lfq_avg_probs(torch.zeros(4, 13, dtype=torch.float64), 10.0)
 
 
-@pytest.mark.parametrize("n,d,sms,splits", [(512, 18, 132, 128), (1000, 18, 132, 64),
-                                            (33, 13, 132, 32), (512, 13, 132, 32)])
-def test_grad_splits_fill_the_card(n, d, sms, splits):
-    got = grad_splits(n, d, sms)
-    assert got == splits
-    assert (2 ** d) % got == 0 and (2 ** d) // got >= 256
+@pytest.mark.parametrize("d", [13, 14, 17, 18, 21, 24])
+def test_twin_factors_the_sweep(d):
+    """The twin's `q` as a `(2^dh, 2^dl)` matrix against the float64 sweep
+    over every code: row h, column l is code `h 2^dl + l` (the index order
+    and the split), and each token's tables multiply to its own
+    distribution at sampled codes."""
+    n = 4 if d > 18 else 16
+    x = _x(n, d, 0.2, seed=6)
+    dh, dl = halves(d)
+    ref = _sweep_f64(x, 5.0).reshape(2 ** dh, 2 ** dl)
+    q = avg_probs_plain(torch.from_numpy(x), 5.0).numpy().reshape(2 ** dh, 2 ** dl)
+    assert np.abs(q - ref).max() <= 1e-6 * ref.max()
+    hi, lo = (t.double().numpy() for t in half_tables(torch.from_numpy(x), 5.0))
+    assert hi.shape == (n, 2 ** dh) and lo.shape == (n, 2 ** dl)
+    j = np.random.default_rng(d).integers(0, 2 ** d, 256)
+    a = 10.0 * x.astype(np.float64)
+    codes = 2.0 * ((j[:, None] >> np.arange(d - 1, -1, -1)) & 1) - 1.0
+    log_z = (np.abs(a) + np.log1p(np.exp(-2.0 * np.abs(a)))).sum(-1)
+    p = np.exp(a @ codes.T - log_z[:, None])
+    np.testing.assert_allclose(hi[:, j >> dl] * lo[:, j & (2 ** dl - 1)], p, rtol=1e-5)
+
+
+@pytest.mark.parametrize("d,scale", [(18, 1.0), (18, 3.0), (17, 3.0)])
+def test_twins_match_a_float64_sweep(d, scale):
+    """The tokenizer's codebook (and 17 bits, where the Pallas kernel's
+    cancellation is too large to pin to) at trained feature scales (beta =
+    100), both twins against the float64 sweep."""
+    x = _x(64, d, scale, seed=7)
+    q_ref = _sweep_f64(x, 100.0)
+    q = avg_probs_plain(torch.from_numpy(x), 100.0).numpy()
+    assert np.abs(q - q_ref).max() <= 1e-6 * q_ref.max()
+    w = np.where(q_ref > EPS, 1.0 + np.log(np.maximum(q_ref, EPS)), np.log(EPS)).astype(np.float32)
+    dx_ref = _sweep_f64(x, 100.0, w)[1]
+    dx = entropy_grad_plain(torch.from_numpy(x), torch.from_numpy(w), 100.0).numpy()
+    assert np.abs(dx_ref).max() > 0
+    assert np.abs(dx - dx_ref).max() <= 1e-4 * np.abs(dx_ref).max()
 
 
 @pytest.mark.parametrize("beta", [5.0, 100.0])
