@@ -13,7 +13,8 @@ Phases, in order (any failure raises and the exit code is non-zero):
      f32 (TF32 off, the CUDA-core variant) at the rollout's shapes and
      ragged edges; bf16 (the tensor-core variant) at every shape of the
      three paths, ragged N and D = 128, o and lse, two calls bit-identical;
-     times at the rollout's shapes beside SDPA's flash forward;
+     times at the rollout's and the session's shapes beside SDPA's flash
+     forward;
   4. kernel K2 (fused LFQ head) against its plain twin at the paths' calls
      and edges (`LFQ_HEAD_CASES`), two calls bit-identical; both times at the
      paths' two calls as CUDA graphs, the eager call and an empty kernel's
@@ -64,7 +65,23 @@ Phases, in order (any failure raises and the exit code is non-zero):
      the plain backward where it is cheap, the bounds, each path's launches
      of the shape per step and launches x (time - bound), at every shape
      that a path's backward launches (the long calls that phases 7 and 10
-     timed keep those times).
+     timed keep those times);
+ 14. the compact model's interactive session (`serve.InteractiveSession`,
+     streaming decode) on the card against the same session on the CPU:
+     same weights and Gumbel noise, f32, four steps at a horizon of three,
+     so the last one rebases: tokens equal, pixels within PIX_TOL;
+ 15. the full-width session (`genie_serve_config()`, bf16, a (1, 4, 64, 64,
+     3) prompt, 8 MaskGIT steps a frame, a horizon of SERVE_STEPS + 4): the
+     kernels' launches per reset (K1 at (8, 64, 64), K2 once at (64, 512,
+     18)), per step and at a rebase; the tokens against `rollout_tokens`
+     with a generator of the same seed; each decoder layer streamed over
+     the batch decode's own input to it, within `bf16_excess` (and in f32
+     within the JAX package's stream pin); the streamed frames' distance
+     from the batch decode and that decode's from the f32 one, printed;
+     finite pixels after the rebase; ms per frame of `step` (p50, p95 over
+     SERVE_STEPS), of
+     `step_nosync` chained and synced once, `reset` ms, peak memory, and
+     one profiled step's device time and largest kernels.
 The line before the last is a JSON summary of the kernels (`launches` on
 one step of the newest path that runs each, and the counts by path; the
 variant, and the kernel's, the plain twin's and the library call's ms
@@ -108,7 +125,9 @@ K3K4_TOL_F32 = dict(atol=1e-4, rtol=1e-5)
 BF16_RTOL, BF16_ATOL_RMS, BF16_ATOL = 2 ** -7, 2 ** -5, 1e-4
 LFQ_UNDECIDED = 1e-5  # |z| below this is a sign decided by rounding
 PIX_TOL = dict(atol=2e-3, rtol=2e-2)  # the repo's parity bound for stacks
+STREAM_EXACT = dict(atol=2e-5, rtol=1e-5)  # stream against batch decode, f32
 TOK_TIMED_STEPS = 10  # full-width tokenizer steps timed after the three checked
+SERVE_STEPS = 24  # full-width session steps timed, as bench.py::section_serve
 # Calls shorter than this are timed as CUDA graphs: their eager time would
 # hold the host's launch.
 GRAPH_BELOW_MS = 0.1
@@ -126,11 +145,15 @@ PATH_CASES = {
                    (512, 256, 64, False), (8192, 16, 64, True)],
     # the frame discriminator's two spatial attentions.
     "tokenizer_train": [(64, 4096, 32, False), (64, 1024, 32, False)],
+    # the dynamics' spatial attention over the 8x8 token grid (the MAGVIT2
+    # tokenizer has no attention; cached temporal attention is masked).
+    "serve": [(8, 64, 64, False)],
 }
 # (N, C, d) of K2 on the paths: the rollout's prompt frame (256 tokens of a
-# 128-wide tokenizer) and the Genie step's frozen tokenizer (4 x 16 frames of
-# 16x16 tokens, 64 wide); both in bf16 with 10 bits.
-LFQ_HEAD_PATH_SHAPES = [(256, 128, 10), (16384, 64, 10)]
+# 128-wide tokenizer), the Genie step's frozen tokenizer (4 x 16 frames of
+# 16x16 tokens, 64 wide), both with 10 bits, and the session's prompt (one
+# 8x8 token frame of the 512-wide MAGVIT2 encoder, 18 bits); all in bf16.
+LFQ_HEAD_PATH_SHAPES = [(256, 128, 10), (16384, 64, 10), (64, 512, 18)]
 # (N, C, d, offset of x in elements) at which phase 4 and the card tests hold
 # K2 to its plain twin: the paths' calls, the tokenizer's 18-bit codebook, the
 # instance for any d up to 31, C no multiple of the 16-byte vector, one token
@@ -322,7 +345,7 @@ def phase_device() -> dict:
     name = torch.cuda.get_device_name(0)
     print(f"[device] {name}, capability {torch.cuda.get_device_capability(0)}, "
           f"torch {torch.__version__}, cuda {torch.version.cuda}")
-    return {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}
+    return {"platform": "gpu", "kind": name, "count": torch.cuda.device_count(), "smi": smi}
 
 
 def phase_build():
@@ -469,11 +492,12 @@ def phase_flash(dev) -> dict:
     # The full-width rollout's calls, in its bf16: dynamics spatial (1 frame
     # x 8 heads, 256 tokens, d 64); tokenizer spatial (1 prompt frame or 5
     # decoded frames x 8 heads, d 16); decoder temporal (256 tubes x 8
-    # heads, 5 frames, causal). Each call takes microseconds, so the three
-    # are timed as CUDA graphs of 50 calls, without the host's launch cost;
-    # the kernel's wrapper called eagerly, one call after another, beside.
+    # heads, 5 frames, causal); and the session's dynamics spatial (8 heads,
+    # 64 tokens, d 64). Each call takes microseconds, so they are timed as
+    # CUDA graphs of 50 calls, without the host's launch cost; the kernel's
+    # wrapper called eagerly, one call after another, beside.
     for bh, n, d, causal in [(8, 256, 64, False), (8, 256, 16, False),
-                             (40, 256, 16, False), (2048, 5, 16, True)]:
+                             (40, 256, 16, False), (2048, 5, 16, True), (8, 64, 64, False)]:
         q, k, v = (torch.randn(bh, n, d, generator=g, device=dev, dtype=torch.bfloat16)
                    for _ in range(3))
         kernel = lambda: flash_attention(q, k, v, d ** -0.5, causal)  # noqa: E731
@@ -1399,18 +1423,18 @@ def phase_tokenizer_train_full_width(dev) -> dict:
           f"{ms:.1f} ms per step, {frames / ms * 1e3:.1f} frames/s (median of steps 3-"
           f"{len(times) - 1}, min {timed[0]:.1f}, max {timed[-1]:.1f}; step 0 "
           f"{times[0] * 1e3:.1f} ms); peak memory {peak:.2f} GiB")
-    _profile_step(step, video, gen, ms)
+    _profile_step("tokenizer train", lambda: step(video, generator=gen), ms)
     return counts, shapes
 
 
-def _profile_step(step, video, gen, step_ms: float, top: int = 10) -> None:
-    """One more step under `torch.profiler`: the device time of its
-    kernels against the unprofiled step time `step_ms`, and the kernels
+def _profile_step(label: str, run, step_ms: float, top: int = 10) -> None:
+    """One more call of `run` under `torch.profiler`: the device time of
+    its kernels against the unprofiled step time `step_ms`, and the kernels
     that took the most of it."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(video, generator=gen)
+        run()
         torch.cuda.synchronize()
     # Kernels only: an op on the host, or a range annotated on the device
     # (the optimizer's step), is charged its kernels' time as well.
@@ -1419,14 +1443,203 @@ def _profile_step(step, video, gen, step_ms: float, top: int = 10) -> None:
                   key=lambda e: e.self_device_time_total, reverse=True)
     device = sum(e.self_device_time_total for e in kern) / 1e3
     if device == 0:
-        print("[tokenizer train profile] the profiler recorded no device time")
+        print(f"[{label} profile] the profiler recorded no device time")
         return
-    print(f"[tokenizer train profile] one step: {device:.1f} ms of device time in "
+    print(f"[{label} profile] one step: {device:.1f} ms of device time in "
           f"{sum(e.count for e in kern)} kernels, {device / step_ms:.1%} of the "
           f"{step_ms:.1f} ms median step")
     for e in kern[:top]:
         t = e.self_device_time_total / 1e3
-        print(f"[tokenizer train profile] {t:9.3f} ms {t / device:6.1%} x{e.count:<5} {e.key[:90]}")
+        print(f"[{label} profile] {t:9.3f} ms {t / device:6.1%} x{e.count:<5} {e.key[:90]}")
+
+
+def phase_compact_serve(dev) -> None:
+    """The compact model's session on the card (kernels) against the same
+    session on the CPU (plain twins): same weights, prompt, actions and
+    Gumbel noise, f32 with TF32 off; four steps at a horizon of three, so
+    the fourth rebases."""
+    from open_genie_tpu_torch.models.configs import genie_compact_config
+    from open_genie_tpu_torch.models.dynamics import gumbel_noise
+    from open_genie_tpu_torch.models.genie import Genie
+    from open_genie_tpu_torch.serve import InteractiveSession
+    from open_genie_tpu_torch.utils import init_weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(SEED + 12)
+    cpu = init_weights(Genie(**genie_compact_config()), g).eval()
+    gpu = copy.deepcopy(cpu)
+    b, spf, n = 2, 4, 4
+    prompt = torch.rand(b, 1, 32, 32, 3, generator=g)
+    acts = torch.randint(0, cpu.act_vocab, (n, b), generator=g)
+    gumbel = gumbel_noise((n, spf, b, 64, 2 ** 8), g)
+    runs = {}
+    for name, model, device in (("cpu", cpu, "cpu"), ("card", gpu, dev)):
+        sess = InteractiveSession(model, max_frames=3, steps_per_frame=spf, device=device)
+        assert sess.stream, "the compact decoder streams"
+        _reset_counts()
+        first = sess.reset(prompt, seed=0)
+        frames = [sess.step(acts[i], gumbel=gumbel[i]) for i in range(n)]
+        runs[name] = (sess.tokens, first, torch.stack(frames, 1), _read_counts(), sess._rebases)
+    (tok_c, first_c, pix_c, _, _), (tok_g, first_g, pix_g, launched, rebases) = runs.values()
+    same = torch.equal(tok_g, tok_c)
+    err = max((first_g - first_c).abs().max().item(), (pix_g - pix_c).abs().max().item())
+    print(f"[compact serve] tokens {tuple(tok_g.shape)} equal CUDA vs CPU: {same}; pixels "
+          f"max |d| {err:.3g}; rebases {rebases}; launches K1 "
+          f"{launched['flash_attention_fwd']}, K2 {launched['lfq_head']}")
+    assert same, "CUDA session tokens differ from the CPU session's"
+    torch.testing.assert_close(first_g, first_c, **PIX_TOL)
+    torch.testing.assert_close(pix_g, pix_c, **PIX_TOL)
+    assert rebases == 1 and launched["flash_attention_fwd"] > 0 and launched["lfq_head"] == 1
+
+
+def _stream_layers_forced(tok, idxs: torch.Tensor, err) -> list:
+    """`err(streamed, batch)` of each decoder layer of `tok`: the layer run
+    on the batch decode's input to it, whole and streamed one token frame's
+    chunk at a time against fresh stream states. No error carries over
+    from the layers before it."""
+    b, t, h, w = idxs.shape
+    cache = tok.init_stream_cache(b, h, w, t)
+    lat = tok.quant.decode_entries(idxs).to(tok.stream_dtype())
+    x, out = lat, []
+    with torch.inference_mode():
+        for i, (layer, has_ext) in enumerate(zip(tok.dec_layers, tok.dec_ext)):
+            y = layer(x, lat) if has_ext else layer(x)
+            m = x.shape[1] // t
+            streamed = torch.cat([tok.stream_layer(i, x[:, p * m:(p + 1) * m], lat[:, p:p + 1],
+                                                   cache[i], p) for p in range(t)], 1)
+            out.append(err(streamed.float(), y.float()))
+            x = y
+    return out
+
+
+def phase_serve_full_width(dev, smi: str) -> dict:
+    """`genie_serve_config()` in bf16: the session's launches, its tokens
+    against `rollout_tokens`, its frames against the batch decode, a
+    rebase, then its times (`bench.py::section_serve`'s loops)."""
+    from open_genie_tpu_torch.models.configs import genie_serve_config
+    from open_genie_tpu_torch.models.genie import Genie
+    from open_genie_tpu_torch.ops.kernels.lfq_head import lfq_head
+    from open_genie_tpu_torch.serve import InteractiveSession
+    from open_genie_tpu_torch.utils import init_weights
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 checks
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(SEED + 13)
+    genie = init_weights(Genie(**genie_serve_config()), g).to(dev, torch.bfloat16).eval()
+    steps, spf, seed = SERVE_STEPS, 8, SEED + 14
+    sess = InteractiveSession(genie, max_frames=steps + 4, steps_per_frame=spf, device=dev)
+    assert sess.stream, "genie_serve_config()'s decoder must stream"
+    prompt = torch.rand(1, 4, 64, 64, 3, generator=g).to(dev, torch.bfloat16)
+    acts = torch.randint(0, genie.act_vocab, (steps + 1,), generator=g).tolist()
+    n_dyn = len(genie.dynamics.layers)
+
+    _reset_counts()
+    first = sess.reset(prompt, seed=seed)
+    per_reset, k2_shapes = _read_counts(), dict(lfq_head.launches_by_shape)
+    _assert_path_kernels("serve", "serve")
+    frames, lat = [sess.step(acts[0])], []
+    per_step = {k: v - per_reset[k] for k, v in _read_counts().items()}
+    for a in acts[1:]:
+        t0 = time.perf_counter()
+        frames.append(sess.step(a))  # the copy to the host syncs
+        lat.append((time.perf_counter() - t0) * 1e3)
+    launches = _read_counts()
+    variants = _assert_path_kernels("serve", "serve")
+    print(f"[serve] launches per reset {per_reset}, K2 by (N, C, d) {k2_shapes}; per step "
+          f"{per_step}; reset + {len(frames)} steps {launches}")
+    assert variants["flash_attention_fwd"]["mma"] == launches["flash_attention_fwd"]
+    assert per_reset["flash_attention_fwd"] == n_dyn and per_reset["lfq_head"] == 1
+    assert k2_shapes == {(64, 512, 18): 1}, f"K2 launched at {k2_shapes}"
+    assert per_step["flash_attention_fwd"] == n_dyn * (spf + 1) and per_step["lfq_head"] == 0
+    assert launches["flash_attention_fwd"] == n_dyn + len(frames) * n_dyn * (spf + 1)
+    assert all(launches[k] == 0 for k in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+                                          "lfq_entropy_fwd", "lfq_entropy_bwd"))
+
+    # The session's noise is one generator seeded `seed`: the rollout with
+    # a generator of that seed gives the same tokens (the horizons round to
+    # the same cache length, so every call has the same shapes).
+    tokens = sess.tokens.to(dev)
+    actions = torch.tensor([[0] + acts], device=dev)
+    want = genie.rollout_tokens(tokens[:, :1], actions, len(frames), spf,
+                                generator=torch.Generator(device=dev).manual_seed(seed))
+    assert torch.equal(tokens, want), "session tokens differ from rollout_tokens"
+    # The frames the session streamed against the batch decode of its
+    # tokens, and that decode against the f32 decode (weights upcast, TF32
+    # off): printed, not held to the bf16 limit, which bounds one op on its
+    # inputs. Over the decoder's 31 layers the last-bit differences of other
+    # cuDNN algorithms (a 4-frame window against the clip) and of bf16
+    # rounding itself grow past it; each layer is held to it below.
+    tok32 = copy.deepcopy(genie.tokenizer).float()
+    batch = genie.tokenizer.decode_tokens(tokens)
+    batch32 = tok32.decode_tokens(tokens)
+    tf = batch.shape[1] // tokens.shape[1]
+    streamed = torch.cat([first, torch.stack(frames, 1)], 1)
+    pick = lambda v: torch.cat([v[:, :tf], v[:, 2 * tf - 1::tf]], 1).cpu()  # noqa: E731
+    cache32 = tok32.init_stream_cache(1, 8, 8, tokens.shape[1])
+    stream32 = torch.cat([tok32.decode_stream(tokens[:, p], cache32, p)[0]
+                          for p in range(tokens.shape[1])], 1)
+    print(f"[serve] {streamed.shape[1]} streamed frames against the batch decode of the "
+          f"tokens: {bf16_excess(streamed, pick(batch)):.3g} of the bf16 limit; the bf16 batch "
+          f"decode against the f32 one: {bf16_excess(batch, batch32):.3g}; f32 stream against "
+          f"f32 batch decode: max |d| {(stream32 - batch32).abs().max().item():.3g} "
+          f"(rms {batch32.pow(2).mean().sqrt().item():.3g})")
+    assert tf == 4 and torch.isfinite(streamed.float()).all()
+    del batch, batch32, stream32, cache32
+    # Each decoder layer streamed over the batch decode's own input to it,
+    # one token frame's chunk at a time: bf16 within the bf16 limit, f32
+    # within the JAX package's stream pin.
+    worst = _stream_layers_forced(genie.tokenizer, tokens, bf16_excess)
+    f32 = _stream_layers_forced(tok32, tokens, lambda a, b: (
+        (a - b).abs() / (STREAM_EXACT["atol"] + STREAM_EXACT["rtol"] * b.abs())).max().item())
+    print(f"[serve] each of the {len(worst)} decoder layers streamed on the batch decode's "
+          f"input to it, {tokens.shape[1]} token frames: bf16 at most {max(worst):.3g} of the "
+          f"bf16 limit (layer {worst.index(max(worst))}), f32 at most {max(f32):.3g} of "
+          f"atol 2e-5 + rtol 1e-5 (layer {f32.index(max(f32))})")
+    assert max(worst) <= 1 and max(f32) <= 1, "a streamed decoder layer disagrees with the batch"
+    del tok32
+
+    while sess._t - sess._t0 < sess.max_frames:
+        sess.step(0)
+    before = _read_counts()
+    after_rebase = sess.step(1)
+    at_rebase = {k: v - before[k] for k, v in _read_counts().items()}
+    keep = sess._keep
+    print(f"[serve] rebase onto {keep} frames: launches at that step {at_rebase}")
+    assert sess._rebases == 1 and torch.isfinite(after_rebase.float()).all()
+    assert at_rebase["flash_attention_fwd"] == n_dyn * (keep + spf + 1)
+
+    # step_nosync chained, one sync at the end (fresh horizon: no rebase);
+    # the peak memory is the session's own from here on, without the checks.
+    torch.cuda.reset_peak_memory_stats()
+    sess.reset(prompt, seed=seed + 1)
+    sess.step_nosync(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        frame = sess.step_nosync(i % 4)
+    torch.cuda.synchronize()
+    chained = (time.perf_counter() - t0) * 1e3 / steps
+    resets = []
+    for i in range(3):
+        t0 = time.perf_counter()
+        sess.reset(prompt, seed=seed + 2 + i)  # the copy to the host syncs
+        resets.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    lat.sort()
+    out = {"step_ms_p50": statistics.median(lat),
+           "step_ms_p95": lat[min(len(lat) - 1, round(0.95 * len(lat)))],
+           "step_ms_min": lat[0], "step_ms_max": lat[-1], "nosync_chained_ms": chained,
+           "reset_ms": statistics.median(resets), "peak_gib": peak}
+    print(f"[serve] {smi}: step {out['step_ms_p50']:.2f} ms p50, {out['step_ms_p95']:.2f} ms p95 "
+          f"(min {lat[0]:.2f}, max {lat[-1]:.2f}) per frame over {steps} host-synced steps; "
+          f"step_nosync chained {chained:.2f} ms per frame; reset {out['reset_ms']:.1f} ms "
+          f"(median of {[round(r, 1) for r in resets]}); peak memory {peak:.2f} GiB")
+    assert torch.isfinite(frame.float()).all()
+    _profile_step("serve step", lambda: sess.step(1), out["step_ms_p50"])
+    return {"launches": launches, "per_reset": per_reset, "per_step": per_step,
+            "at_rebase": at_rebase, "times": out}
 
 
 def main() -> int:
@@ -1450,19 +1663,26 @@ def main() -> int:
     phase_compact_tokenizer_train(dev)
     tok_train, tok_shapes = phase_tokenizer_train_full_width(dev)
     phase_backward_shapes(dev, {"train_step": train_shapes, "tokenizer_train": tok_shapes})
+    phase_compact_serve(dev)
+    serve = phase_serve_full_width(dev, device["smi"])
     kernels = [k1, k2, k3, k4, k5, k6]
     for k in kernels:
-        by_path = {"tokenizer_train": tok_train[k["name"]], "train_step": train.get(k["name"], 0),
-                   "rollout": rollout.get(k["name"], 0)}
-        # The newest path that runs the kernel: one tokenizer training step
-        # for K1 and K3 to K6, one Genie training step for K2.
+        name = k["name"]
+        by_path = {"serve": serve["launches"][name], "tokenizer_train": tok_train[name],
+                   "train_step": train.get(name, 0), "rollout": rollout.get(name, 0)}
+        # The newest path that runs the kernel: the session (a reset and
+        # its SERVE_STEPS + 1 steps) for K1 and K2, one tokenizer training
+        # step for K3 to K6.
         k["launches"] = next((c for c in by_path.values() if c > 0), 0)
         k["launches_by_path"] = by_path
+        k["serve_launches"] = {"per_reset": serve["per_reset"][name],
+                               "per_step": serve["per_step"][name],
+                               "at_rebase": serve["at_rebase"][name]}
         missing = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                    "plain_ms", "bound_ms", "bound_by", "library_ms", "variant"} - set(k)
         assert not missing, f"{k['name']} lacks {missing}"
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": device}))
+    print(json.dumps({"kernels": kernels, "serve": serve["times"]}))
+    print(json.dumps({"ok": True, "device": {k: device[k] for k in ("platform", "kind", "count")}}))
     return 0
 
 

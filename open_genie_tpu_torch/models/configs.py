@@ -6,6 +6,7 @@ from open_genie_tpu_torch.models.blueprints import (
     LATENT_ACT_ENC,
     MAGVIT2_DEC_DESC,
     MAGVIT2_ENC_DESC,
+    MAGVIT2_STREAM_DEC_DESC,
 )
 
 
@@ -129,6 +130,36 @@ def genie_train_config() -> dict:
             dec_desc=LATENT_ACT_DEC,
             d_codebook=8,
             n_embd=256,
+            inp_shape=(64, 64),
+        ),
+        dynamics=dict(
+            desc=(("space-time_attn", {"n_rep": 6, "n_embd": 512, "n_head": 8, "d_head": 64}),),
+            embed_dim=512,
+        ),
+    )
+
+
+def genie_serve_config() -> dict:
+    """The interactive session's model of the JAX package's benchmark
+    (`bench.py::_serve_cfg`, pinned equal by the tests): the full MAGVIT2
+    d=18 encoder (64x64 frames, 4 frames to one 8x8 token frame of
+    2^18-token vocabulary) with the `magvit2_stream` decoder (the same
+    topology with per-frame causal statistics, so it streams exactly), the
+    6-block, 512-wide dynamics trunk of 8 heads x 64, and a minimal latent
+    action model (serving takes its actions from the user)."""
+    return dict(
+        tokenizer=dict(
+            enc_desc=MAGVIT2_ENC_DESC,
+            dec_desc=MAGVIT2_STREAM_DEC_DESC,
+            d_codebook=18,
+        ),
+        latent_action=dict(
+            enc_desc=(("space-time_attn", {"n_rep": 1, "n_embd": 64,
+                                           "n_head": 2, "d_head": 32}),),
+            dec_desc=(("space-time_attn", {"n_rep": 1, "n_embd": 64,
+                                           "n_head": 2, "d_head": 32}),),
+            d_codebook=8,
+            n_embd=64,
             inp_shape=(64, 64),
         ),
         dynamics=dict(

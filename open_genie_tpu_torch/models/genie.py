@@ -8,6 +8,10 @@ those tokens and actions is added to it.
 Rollout (`forward`): the prompt is tokenized, each new frame is generated
 by KV-cached MaskGIT refinement of the dynamics model, and the token video
 is decoded to pixels.
+
+Serving (`session_*`, `decode_window`, `init_pixel_stream`,
+`decode_stream_frame`): the steps of `serve.InteractiveSession`, one
+frame at a time against caches allocated for the session's horizon.
 """
 from __future__ import annotations
 
@@ -163,6 +167,72 @@ class Genie(nn.Module):
         frame = code.view(b, h, w)
         _, cache = self.dynamics.decode_frame(frame, act_t, cache, tgt)
         return frame, cache
+
+    # ------------------------------------------------------------------ #
+    # Interactive session (see serve.py)
+    # ------------------------------------------------------------------ #
+
+    @torch.inference_mode()
+    def session_prefill(self, prompt: torch.Tensor, max_frames: int,
+                        actions: Optional[torch.Tensor] = None):
+        """Start a session: tokenize the prompt, allocate KV caches for
+        `t0 + max_frames` frames and commit the prompt frames with
+        `actions[:, :t0]` (zeros by default). Returns `(buf, cache, t0)`,
+        `buf` the tokens zero-padded to the session horizon."""
+        tokens = self.tokenize_prompt(prompt)
+        b, t0 = tokens.shape[:2]
+        if actions is None:
+            actions = torch.zeros(b, t0, dtype=torch.long, device=tokens.device)
+        buf, cache = self.session_rebase(tokens, actions[:, :t0].to(tokens.device), max_frames)
+        return buf, cache, t0
+
+    @torch.inference_mode()
+    def session_rebase(self, tokens: torch.Tensor, actions: torch.Tensor, max_frames: int):
+        """Fresh KV caches prefilled from a trailing `(B, W, H, W)` token
+        window and its `(B, W)` action ids, positions restarting at 0
+        (exact for RoPE attention among the kept frames, whose scores
+        depend only on position differences). Returns `(buf, cache)`,
+        `buf` zero-padded to `W + max_frames` frames."""
+        b, t0, h, w = tokens.shape
+        cache = self.dynamics.init_cache(
+            b, h, w, t0 + max_frames, dtype=self._decode_dtype(), device=tokens.device
+        )
+        for pos in range(t0):
+            _, cache = self.dynamics.decode_frame(tokens[:, pos], actions[:, pos], cache, pos)
+        buf = torch.cat([tokens, tokens.new_zeros(b, max_frames, h, w)], dim=1)
+        return buf, cache
+
+    @torch.inference_mode()
+    def session_step(self, buf: torch.Tensor, cache, t: int, action: torch.Tensor,
+                     steps_per_frame: int = 8, temp: float = 1.0, which: str = "linear",
+                     top_k: Optional[int] = None, generator: Optional[torch.Generator] = None,
+                     gumbel: Optional[torch.Tensor] = None):
+        """Generate the frame at position `t` of the session buffer from a
+        live `(B,)` action, writing it into `buf` and its K/V into `cache`
+        in place. The noise comes from `generator`, or from `gumbel`, a
+        `(steps, B, H'*W', V)` tensor. Returns `(buf, cache)`; token-exact
+        with `rollout_tokens` given the same noise."""
+        b, _, h, w = buf.shape
+        schedule = get_schedule(steps_per_frame, (h, w), which)
+        frame, cache = self._refine_frame(
+            cache, t, action, schedule, temp, (b, h, w), buf.dtype, top_k, generator, gumbel
+        )
+        buf[:, t] = frame
+        return buf, cache
+
+    def decode_window(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Decode a token-frame window to pixels."""
+        return self.tokenizer.decode_tokens(tokens)
+
+    def init_pixel_stream(self, batch: int, h: int, w: int, t_max: int, device=None) -> list:
+        """Streaming pixel-decoder states for a `t_max`-frame session, in
+        the tokenizer's own dtype (`VideoTokenizer.init_stream_cache`)."""
+        return self.tokenizer.init_stream_cache(batch, h, w, t_max, device=device)
+
+    def decode_stream_frame(self, idxs: torch.Tensor, dcache: list, pos: int):
+        """Stream-decode one token frame to pixels: `(pixels, dcache)`,
+        exact against `decode_window` (`VideoTokenizer.decode_stream`)."""
+        return self.tokenizer.decode_stream(idxs, dcache, pos)
 
     def _check_actions(self, actions: torch.Tensor, total: int) -> torch.Tensor:
         """Reject ids outside `[0, act_vocab)` (the embedding has no row for

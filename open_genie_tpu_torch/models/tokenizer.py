@@ -10,6 +10,11 @@ parameter dtype (JAX promotes mixed dtypes; torch refuses them). Layers
 marked `has_ext` take a condition: in the decoder, the quantized latents
 (the MAGVIT2 decoder's adaptive GroupNorms). With `remat` (the default, as
 in the JAX package) every layer recomputes its activations in the backward.
+
+Streaming decode (`decode_stream`): a decoder that `stream_decodable()`
+passes is strictly time-causal with finite state, so it decodes one token
+frame at a time against per-layer states (`init_stream_cache`) and gives
+exactly the batch `decode_tokens` output, in O(1) work per frame.
 """
 from __future__ import annotations
 
@@ -19,7 +24,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from open_genie_tpu_torch.modules import parse_blueprint
+from open_genie_tpu_torch.modules import blueprint_layers, parse_blueprint
+from open_genie_tpu_torch.modules.attention import SpaceTimeAttention, st_attn_cache
 from open_genie_tpu_torch.modules.quantization import LookupFreeQuantization
 from open_genie_tpu_torch.ops.kernels.lfq_head import lfq_head
 from open_genie_tpu_torch.utils import cast_tuple, default, last_out_channels, module_dtype
@@ -63,6 +69,7 @@ class VideoTokenizer(nn.Module):
         # The video's channels are not known at build; the decoder takes
         # the encoder's width back from the quantizer.
         self.enc_layers, self.enc_ext = parse_blueprint(enc_desc, remat=remat)
+        self.dec_width = last_enc
         self.dec_layers, self.dec_ext = parse_blueprint(dec_desc, remat=remat, width=last_enc)
         self.quant = LookupFreeQuantization(
             d_codebook, n_codebook, input_dim=last_enc, use_bias=lfq_bias,
@@ -103,6 +110,10 @@ class VideoTokenizer(nn.Module):
         )
         rec = self.decode(quant)
         return rec, {"quant": quant, "idxs": idxs, "quant_loss": quant_loss, "lfq_aux": aux}
+
+    def quantize(self, enc_video: torch.Tensor, beta: float = 100.0, training: bool = False):
+        """LFQ of encoder features: `((quant, idxs), quant_loss, aux)`."""
+        return self.quant(enc_video, beta=beta, training=training)
 
     @property
     def temporal_downsampling(self) -> int:
@@ -160,3 +171,127 @@ class VideoTokenizer(nn.Module):
     def decode_tokens(self, idxs: torch.Tensor) -> torch.Tensor:
         """Integer token grid -> video, via the LFQ codebook."""
         return self.decode(self.quant.decode_entries(idxs))
+
+    # ------------------------------------------------------------------ #
+    # Streaming decode: one token frame at a time, for serving.
+    # ------------------------------------------------------------------ #
+
+    def stream_decodable(self) -> bool:
+        """Whether the decoder streams exactly (`decode_stream`): every
+        layer is strictly time-causal with finite state.
+
+          * `causal-conv3d` with time stride 1 and constant padding;
+          * `video-residual` with `use_causal`, no downsample and frame-local
+            norms (`per_frame_norm` or `use_norm=False`);
+          * `space-time_attn` with a single-conv FFN, before any time
+            upsample (its KV decode takes one position a step);
+          * `depth2spacetime_upsample` (and the JAX package's
+            `depth2time_upsample` and `depth2space_upsample`, which the
+            port does not build yet);
+          * `group_norm` / `adaptive_group_norm` with `per_frame`; only a
+            per-frame adaptive norm may take the condition (`has_ext`);
+          * parameter-free activations.
+        The stock MAGVIT2 decoder (time-pooled GroupNorm) does not stream;
+        `magvit2_stream` does."""
+        for d in self.dec_desc:
+            if isinstance(d, str) or not d[1].get("has_ext"):
+                continue
+            if not (d[0] == "adaptive_group_norm" and d[1].get("per_frame")):
+                return False
+        frames_per_step = 1
+        for name, kw, _ in blueprint_layers(self.dec_desc, self.dec_width):
+            if name == "causal-conv3d":
+                if cast_tuple(kw.get("stride", 1), 3)[0] != 1 or kw.get(
+                    "pad_mode", "constant"
+                ) not in ("constant", "zeros"):
+                    return False
+            elif name == "video-residual":
+                if not kw.get("use_causal") or kw.get("downsample") is not None:
+                    return False
+                if kw.get("use_norm", True) and not kw.get("per_frame_norm"):
+                    return False
+                if kw.get("pad_mode", "constant") not in ("constant", "zeros"):
+                    return False
+            elif name == "space-time_attn":
+                if kw.get("hid_dim") is not None or frames_per_step != 1:
+                    return False
+            elif name == "depth2spacetime_upsample":
+                frames_per_step *= int(kw.get("time_factor", 2))
+            elif name == "depth2time_upsample":
+                frames_per_step *= int(kw.get("factor", 2))
+            elif name in ("group_norm", "adaptive_group_norm"):
+                if not kw.get("per_frame"):
+                    return False
+            elif name not in ("depth2space_upsample", "silu", "gelu", "relu", "leaky_relu"):
+                return False
+        return True
+
+    def stream_dtype(self) -> torch.dtype:
+        """Dtype of the streaming states: the tokenizer's own parameters'
+        (not the dynamics trunk's, which may differ in a mixed-precision
+        checkpoint)."""
+        return next(
+            (p.dtype for p in self.parameters() if p.dtype.is_floating_point), torch.float32
+        )
+
+    def init_stream_cache(self, batch: int, h: int, w: int, t_max: int, device=None) -> list:
+        """Zeroed per-layer streaming states for a `t_max`-token-frame
+        session at token grid `(h, w)`, in `stream_dtype()`, on `device`
+        (default: the tokenizer's): a conv layer's `(B, time_pad, H, W,
+        C_in)` input window, a residual block's `{conv1, conv2}` windows, a
+        `space-time_attn`'s `{k, v, ffn, fh}` decode cache, `None` for a
+        stateless layer."""
+        assert self.stream_decodable(), (
+            "decoder blueprint is not streamable (see stream_decodable)"
+        )
+        dtype = self.stream_dtype()
+        device = device or next(self.parameters()).device
+        zeros = lambda t, hh, ww, c: torch.zeros(  # noqa: E731
+            batch, t, hh, ww, c, dtype=dtype, device=device)
+        caches = []
+        for (name, kw, _), layer in zip(blueprint_layers(self.dec_desc, self.dec_width),
+                                        self.dec_layers):
+            if name == "causal-conv3d":
+                caches.append(zeros(layer.stream_state_len(), h, w, kw["in_channels"]))
+            elif name == "video-residual":
+                tp = layer.stream_state_len()
+                caches.append({
+                    "conv1": zeros(tp, h, w, layer.conv1.conv3d.in_channels),
+                    "conv2": zeros(tp, h, w, layer.conv2.conv3d.in_channels),
+                })
+            elif name == "space-time_attn":
+                caches.append(st_attn_cache(kw, batch, h, w, t_max, dtype, device))
+            elif name == "depth2spacetime_upsample":
+                caches.append(zeros(layer.stream_state_len(), h, w, kw["in_channels"]))
+                h, w = h * layer.space_factor, w * layer.space_factor
+            else:
+                caches.append(None)
+        return caches
+
+    @torch.inference_mode()
+    def decode_stream(self, idxs: torch.Tensor, cache: list, pos: int):
+        """Decode ONE token frame `(B, H, W)` (or `(B, 1, H, W)`) at
+        token-frame index `pos` against the streaming states `cache`,
+        which are updated in place. Returns `(pixels, cache)`, `pixels`
+        `(B, time_factor_total, H', W', C)`: the batch `decode_tokens`
+        output for that frame's pixel frames."""
+        if idxs.dim() == 3:
+            idxs = idxs[:, None]
+        x = self.quant.decode_entries(idxs).to(module_dtype(self))
+        # A per-frame adaptive norm reads only the current token frame's
+        # latents, which is all that the stream holds.
+        cond = x
+        for i, lc in enumerate(cache):
+            x = self.stream_layer(i, x, cond, lc, pos)
+        return x, cache
+
+    def stream_layer(self, i: int, x: torch.Tensor, cond: torch.Tensor, cache, pos: int):
+        """Decoder layer `i`'s streaming step on `x`, one token frame's
+        worth of its input (`cond`: that token frame's latents), against
+        its state `cache` (updated in place)."""
+        layer, has_ext = self.dec_layers[i], self.dec_ext[i]
+        if isinstance(layer, SpaceTimeAttention):
+            return layer(x, cache=cache, cache_pos=pos)[0]
+        if cache is not None:
+            return layer(x, cache=cache)[0]
+        return layer(x, cond) if has_ext else layer(x)

@@ -145,6 +145,12 @@ def parse_blueprint(
     return nn.ModuleList(layers), ext
 
 
+def blueprint_layers(blueprint: Blueprint, width: Optional[int] = None) -> list:
+    """`(name, kwargs, has_ext)` of each layer that `parse_blueprint` builds
+    from `blueprint`, in order (see `_expand`)."""
+    return _expand(blueprint, width)[0]
+
+
 def blueprint_out_width(blueprint: Blueprint, width: Optional[int] = None) -> Optional[int]:
     """The channel width leaving a blueprint that `width` channels enter."""
     return _expand(blueprint, width)[1]

@@ -4,6 +4,13 @@
 `VideoTokenizer.temporal_downsampling`; the resamplers' `st_factor` is the
 space-time volume scaling (`time_factor * space_factor ** 2`, reciprocal
 for a downsampler), read by `LatentAction`'s encoder/decoder check.
+
+Streaming decode: `CausalConv3d`, `DepthToSpaceTimeUpsample` and a causal
+`VideoResidualBlock` take `cache=`, the trailing input window of each of
+their time-causal convs (`stream_state_len()` frames, zeros at sequence
+start: exactly the causal zero padding). They then run on the next `m`
+frames alone, update the window IN PLACE and return `(out, cache)`; the
+outputs equal the full forward's for those frames.
 """
 from __future__ import annotations
 
@@ -14,7 +21,7 @@ from torch import nn
 
 from open_genie_tpu_torch.modules.misc import ACTIVATIONS
 from open_genie_tpu_torch.modules.norm import group_norm
-from open_genie_tpu_torch.ops.conv import causal_conv3d, conv3d_cl
+from open_genie_tpu_torch.ops.conv import causal_conv3d, causal_time_pad, conv3d_cl
 from open_genie_tpu_torch.ops.resample import depth_to_spacetime
 from open_genie_tpu_torch.utils import cast_tuple, default
 
@@ -52,11 +59,30 @@ class CausalConv3d(nn.Module):
             dilation=self.dilation, bias=use_bias,
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return causal_conv3d(
-            x, self.conv3d.weight, self.conv3d.bias, stride=self.stride,
-            dilation=self.dilation, space_padding=self.space_padding,
+    def stream_state_len(self) -> int:
+        """Frames of trailing input a stream step carries: the causal
+        left-pad width."""
+        return causal_time_pad(self.conv3d.kernel_size[0], self.stride[0], self.dilation[0])
+
+    def forward(self, x: torch.Tensor, cache: Optional[torch.Tensor] = None):
+        """Full causal forward, or with `cache` (the `(B, time_pad, H, W,
+        C_in)` trailing input window) the conv VALID in time over
+        `cache ++ x`: returns `(out, cache)`, the window moved on by
+        `x`'s frames in place. Streaming needs time stride 1 (and the
+        constant time padding that this module always has)."""
+        if cache is None:
+            return causal_conv3d(
+                x, self.conv3d.weight, self.conv3d.bias, stride=self.stride,
+                dilation=self.dilation, space_padding=self.space_padding,
+            )
+        assert self.stride[0] == 1, "streaming causal conv requires time stride 1"
+        window = torch.cat([cache.to(x.dtype), x], dim=1)
+        out = conv3d_cl(
+            window, self.conv3d.weight, self.conv3d.bias, stride=self.stride,
+            dilation=self.dilation, padding=(0, *self.space_padding),
         )
+        cache.copy_(window[:, x.shape[1]:])
+        return out, cache
 
 
 class SpaceTimeDownsample(nn.Module):
@@ -104,8 +130,17 @@ class DepthToSpaceTimeUpsample(nn.Module):
             kernel_size=kernel_size,
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return depth_to_spacetime(self.conv(x), self.time_factor, self.space_factor)
+    def stream_state_len(self) -> int:
+        return self.conv.stream_state_len()
+
+    def forward(self, x: torch.Tensor, cache: Optional[torch.Tensor] = None):
+        """Full forward, or streaming with `cache`, the inner conv's input
+        window: `m` frames in give `m * time_factor` frames out, and
+        `(out, cache)` is returned."""
+        if cache is None:
+            return depth_to_spacetime(self.conv(x), self.time_factor, self.space_factor)
+        h, cache = self.conv(x, cache=cache)
+        return depth_to_spacetime(h, self.time_factor, self.space_factor), cache
 
 
 class SpaceTimeUpsample(nn.Module):
@@ -197,7 +232,25 @@ class VideoResidualBlock(nn.Module):
             return conv(h)
         return conv3d_cl(h, conv.weight, conv.bias, padding=padding)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def stream_state_len(self) -> int:
+        """Frames of trailing input each main-branch conv carries; the 1x1x1
+        residual projection is stateless."""
+        return self.conv1.stream_state_len()
+
+    def forward(self, x: torch.Tensor, cache: Optional[dict] = None):
+        """Full forward, or streaming with `cache` = `{"conv1", "conv2"}`,
+        the main-branch convs' input windows: needs `use_causal` and
+        frame-local norms (`per_frame_norm` or `use_norm=False`), and
+        returns `(out, cache)`."""
+        if cache is not None:
+            assert self.use_causal, "streaming VideoResidualBlock requires use_causal=True"
+            assert self.per_frame_norm or self.norm1 is None, (
+                "streaming VideoResidualBlock requires per_frame_norm "
+                "(time-pooled GroupNorm is not causal)"
+            )
+            h, _ = self.conv1(self.act(self._norm(self.norm1, x)), cache=cache["conv1"])
+            h, _ = self.conv2(self.act(self._norm(self.norm2, h)), cache=cache["conv2"])
+            return h + self.res_proj(x), cache
         h = self._conv(self.conv1, self.act(self._norm(self.norm1, x)), self.padding)
         h = self._conv(self.conv2, self.act(self._norm(self.norm2, h)), self.padding)
         return h + self._conv(self.res_proj, x, 0)

@@ -2,10 +2,12 @@
 
 Replaces `open_genie_tpu/ops/pallas/lfq_head.py::_head_kernel`. The wrapper
 dispatches by device: a CPU tensor goes to the plain PyTorch twin, a CUDA
-tensor launches the kernel (or raises), any other device raises.
+tensor launches the kernel (or raises), any other device raises. It counts
+its launches in `launches`, and by `(N, C, d)` in `launches_by_shape`.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import Tuple
 
 import torch
@@ -77,7 +79,9 @@ def lfq_head(
         )
     kernels.check(err, "lfq_head")
     lfq_head.launches += 1
+    lfq_head.launches_by_shape[(n, c, d)] += 1
     return codes, idx
 
 
 lfq_head.launches = 0
+lfq_head.launches_by_shape = Counter()

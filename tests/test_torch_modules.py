@@ -22,6 +22,7 @@ import open_genie_tpu_torch.models.blueprints as tbp  # noqa: E402
 from open_genie_tpu_torch.bridge import load_flax_params  # noqa: E402
 from open_genie_tpu_torch.models.configs import (  # noqa: E402
     genie_compact_config,
+    genie_serve_config,
     genie_rollout_config,
 )
 from open_genie_tpu_torch.models.dynamics import get_schedule  # noqa: E402
@@ -243,6 +244,12 @@ def test_configs_equal_jax_side():
 
     assert genie_rollout_config() == bench._genie_cfg()
     assert genie_compact_config() == GENIE_CFG
+
+
+def test_serve_config_equals_jax_side():
+    import bench
+
+    assert genie_serve_config() == bench._serve_cfg()
 
 
 def test_unported_module_names_raise():

@@ -33,6 +33,7 @@ def test_port_imports_without_jax():
         "import open_genie_tpu_torch.ops.kernels.lfq_entropy\n"
         "import open_genie_tpu_torch.train.losses\n"
         "import open_genie_tpu_torch.train.loop\n"
+        "import open_genie_tpu_torch.serve\n"
         "print('ok')\n"
     )
     proc = subprocess.run(
@@ -41,6 +42,28 @@ def test_port_imports_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_no_file_of_the_port_imports_jax():
+    """Every module of the package, and `chip_smoke.py`, by their import
+    statements: none names jax, flax or the JAX package."""
+    import ast
+    from pathlib import Path
+
+    files = sorted(Path(REPO, "open_genie_tpu_torch").rglob("*.py"))
+    files.append(Path(REPO, "chip_smoke.py"))
+    assert len(files) > 20
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "open_genie_tpu"), (
+                    f"{path.relative_to(REPO)} imports {name}")
 
 
 def _conv_params():
