@@ -3,7 +3,10 @@
 
 Run from the root of a checkout on a machine with a Hopper card:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--seed N]
+
+Each phase seeds its generators (one on the host for weights and data, one
+on the card for noise) from `--seed` (default 0).
 
 Phases, in order (any failure raises and the exit code is non-zero):
   1. device: the card's name and power limit;
@@ -81,15 +84,43 @@ Phases, in order (any failure raises and the exit code is non-zero):
      finite pixels after the rebase; ms per frame of `step` (p50, p95 over
      SERVE_STEPS), of
      `step_nosync` chained and synced once, `reset` ms, peak memory, and
-     one profiled step's device time and largest kernels.
-The line before the last is a JSON summary of the kernels (`launches` on
-one step of the newest path that runs each, and the counts by path; the
-variant, and the kernel's, the plain twin's and the library call's ms
-beside the bound at one shape of the paths); the last line is
-`{"ok": true, "device": {...}}`. Without a CUDA device it exits 1 at once.
+     one profiled step's device time and largest kernels;
+ 16. stage 1 of the staged training: `TokenizerTrainModule` of
+     `tokenize_yaml_config()` (`configs/tokenize.yaml`: the LFQ's input
+     projection, 10 bits) on batch 8 x 16 x 64x64, bf16 on f32 weights,
+     AdamW lr 1e-3: a warm-up step (a gradient on every trainable
+     parameter) and 3 timed steps, finite loss terms, the launches per
+     step at the shapes of `PATH_CASES["stage1_train"]`, peak memory, one
+     profiled step; then `evaluate_tokenizer` of a bf16 copy over 2
+     batches (PSNR, SSIM, usage);
+ 17. stages 2 and 3: `ActionTrainModule` at `genie_train_config()`'s latent
+     action (4 x 16 x 64x64, 3 steps), its weights into a Genie whose
+     `tokenize_with_actions` turns 32 clips into tokens (32, 16, 16, 16)
+     and actions (32, 16) (K2 once per chunk of 4), `DynamicsTrainModule`
+     of `dynamics_yaml_config()` on that batch (3 steps, lr 3e-4, one
+     more profiled), cached
+     `generate` of 10 steps onto 15 frames and `evaluate_dynamics` over two
+     batches of 16, each with its launches, shapes, ms and peak memory;
+ 18. `rollout_tokens_full` at `genie_rollout_config()` (2 frames at spf 8):
+     tokens in range, the share equal to the cached `rollout_tokens` under
+     the same noise printed;
+ 19. K1, and K3 and K4 where trained, at every shape that phases 16 to 18
+     brought, as CUDA graphs beside SDPA's flash forward, aten's flash
+     backward, the plain twins where cheap, and the bounds, with each
+     path's launches of the shape. Phases 3 and 7 hold those shapes to the
+     plain twins (`FLASH_BF16_CASES`).
+Every line of a time or a memory size in phases 16 to 18 carries the
+card's name and power limit. The line before the last is a JSON summary
+of the kernels (`launches` on one step or call of the newest path that
+runs each, and the counts by path; the variant, and the kernel's, the
+plain twin's and the library call's ms beside the bound at one shape of
+the paths, and for K1, K3 and K4 the shapes of phase 19), the session's
+times and each stage path's; the last line is `{"ok": true, "device":
+{...}}`. Without a CUDA device it exits 1 at once.
 """
 from __future__ import annotations
 
+import argparse
 import copy
 import functools
 import json
@@ -128,6 +159,12 @@ PIX_TOL = dict(atol=2e-3, rtol=2e-2)  # the repo's parity bound for stacks
 STREAM_EXACT = dict(atol=2e-5, rtol=1e-5)  # stream against batch decode, f32
 TOK_TIMED_STEPS = 10  # full-width tokenizer steps timed after the three checked
 SERVE_STEPS = 24  # full-width session steps timed, as bench.py::section_serve
+# (clips, frames) of 64x64 video: the stage-1 tokenizer step's batch, the
+# stage-2 latent action's, and the clips that stage 2 tokenizes (chunks of
+# STAGE3_CHUNK) for the stage-3 dynamics.
+STAGE1_BATCH = (8, 16)
+STAGE2_BATCH = (4, 16)
+STAGE3_BATCH, STAGE3_CHUNK = (32, 16), 4
 # Calls shorter than this are timed as CUDA graphs: their eager time would
 # hold the host's launch.
 GRAPH_BELOW_MS = 0.1
@@ -148,7 +185,38 @@ PATH_CASES = {
     # the dynamics' spatial attention over the 8x8 token grid (the MAGVIT2
     # tokenizer has no attention; cached temporal attention is masked).
     "serve": [(8, 64, 64, False)],
+    # Stage 1, `tokenize_yaml_config()` at batch 8 x 16 x 64x64: the
+    # tokenizer's spatial (8 heads over 32x32) and temporal attention, and
+    # the frame discriminator's two spatial attentions over 8 x 4 frames;
+    # its evaluation runs the tokenizer alone.
+    "stage1_train": [(1024, 1024, 64, False), (65536, 16, 64, True),
+                     (128, 4096, 32, False), (128, 1024, 32, False)],
+    "stage1_eval": [(1024, 1024, 64, False), (65536, 16, 64, True)],
+    # Stage 2, `genie_train_config()`'s latent action at batch 4 x 16 x
+    # 64x64: spatial at 64x64 and 32x32, temporal self- and cross-attention.
+    "action_train": [(256, 4096, 16, False), (65536, 16, 16, True),
+                     (256, 1024, 16, False), (16384, 16, 16, True)],
+    # `tokenize_with_actions` over chunks of 4 clips: the frozen tokenizer's
+    # attention at 16x16 tokens and the latent action's.
+    "tokenize_with_actions": [(256, 256, 16, False), (4096, 16, 16, True),
+                              (256, 4096, 16, False), (65536, 16, 16, True),
+                              (256, 1024, 16, False), (16384, 16, 16, True)],
+    # Stage 3, `dynamics_yaml_config()` on 32 x 16 frames of 16x16 tokens:
+    # spatial and temporal; cached `generate` (spatial per frame, 32 clips;
+    # its cached temporal attention is masked); `evaluate_dynamics` over two
+    # batches of 16.
+    "dynamics_train": [(4096, 256, 64, False), (65536, 16, 64, True)],
+    "generate": [(256, 256, 64, False)],
+    "eval_dynamics": [(2048, 256, 64, False), (32768, 16, 64, True)],
+    # `rollout_tokens_full` at `genie_rollout_config()`: the prompt frame's
+    # tokenizer attention, then the dynamics over the whole 3-frame buffer.
+    "rollout_full": [(8, 256, 16, False), (2048, 1, 16, True), (24, 256, 64, False),
+                     (2048, 3, 64, True)],
 }
+# The paths this checkout added last (phases 16 to 18): their new shapes are
+# timed in phase 19.
+STAGE_PATHS = ("stage1_train", "stage1_eval", "action_train", "tokenize_with_actions",
+               "dynamics_train", "generate", "eval_dynamics", "rollout_full")
 # (N, C, d) of K2 on the paths: the rollout's prompt frame (256 tokens of a
 # 128-wide tokenizer), the Genie step's frozen tokenizer (4 x 16 frames of
 # 16x16 tokens, 64 wide), both with 10 bits, and the session's prompt (one
@@ -295,6 +363,15 @@ def in_turns(plain, kernel, plain_iters: int = 50, library=None, iters: int = 50
     return {"ms": sum(ks) / len(ks), "plain_ms": t["plain"], "library_ms": lib}
 
 
+def _as_heads(*ts) -> tuple:
+    """`(B*H, N, D)` tensors viewed as `(B, H, N, D)` with H the largest
+    divisor of B*H that is at most 65535, the grid limit of PyTorch's flash
+    kernels."""
+    bh = ts[0].shape[0]
+    h = next(h for h in range(min(bh, 65535), 0, -1) if bh % h == 0)
+    return tuple(t.view(bh // h, h, *t.shape[1:]) for t in ts)
+
+
 def sdpa_forward(q, k, v, scale: float, causal: bool):
     """PyTorch's flash-backend SDPA forward on `(BH, N, D)` tensors: K1's
     yardstick (`library_ms`). Timed here, called nowhere in the port."""
@@ -302,18 +379,14 @@ def sdpa_forward(q, k, v, scale: float, causal: bool):
 
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
         return torch.nn.functional.scaled_dot_product_attention(
-            q[None], k[None], v[None], is_causal=causal, scale=scale)
+            *_as_heads(q, k, v), is_causal=causal, scale=scale)
 
 
 def aten_flash_backward(q, k, v, do, scale: float, causal: bool):
     """A call of aten's flash-attention backward, which computes dq, dk and
     dv together, on the saved forward of aten's flash forward on the same
     inputs: the yardstick of K3 and K4 (`library_ms`)."""
-    # (B*H, N, D) as (B, H, N, D) with H the largest divisor of B*H that is
-    # at most 65535, the kernel's grid limit.
-    bh = q.shape[0]
-    h = next(h for h in range(min(bh, 65535), 0, -1) if bh % h == 0)
-    q4, k4, v4, do4 = (t.view(bh // h, h, *t.shape[1:]) for t in (q, k, v, do))
+    q4, k4, v4, do4 = _as_heads(q, k, v, do)
     o4, lse4, cq, ck, mq, mk, seed, offset, _ = \
         torch.ops.aten._scaled_dot_product_flash_attention(q4, k4, v4, 0.0, causal, False,
                                                            scale=scale)
@@ -1429,8 +1502,9 @@ def phase_tokenizer_train_full_width(dev) -> dict:
 
 def _profile_step(label: str, run, step_ms: float, top: int = 10) -> None:
     """One more call of `run` under `torch.profiler`: the device time of
-    its kernels against the unprofiled step time `step_ms`, and the kernels
-    that took the most of it."""
+    its kernels against the unprofiled step time `step_ms`, the kernels
+    that took the most of it, and the host ops whose own kernels did (a
+    kernel's name does not say which op launched it)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1451,6 +1525,12 @@ def _profile_step(label: str, run, step_ms: float, top: int = 10) -> None:
     for e in kern[:top]:
         t = e.self_device_time_total / 1e3
         print(f"[{label} profile] {t:9.3f} ms {t / device:6.1%} x{e.count:<5} {e.key[:90]}")
+    ops = sorted((e for e in prof.key_averages() if e.device_type.name == "CPU"
+                  and not getattr(e, "is_user_annotation", False)),
+                 key=lambda e: e.self_device_time_total, reverse=True)
+    for e in ops[:top]:
+        t = e.self_device_time_total / 1e3
+        print(f"[{label} profile] op {t:9.3f} ms {t / device:6.1%} x{e.count:<5} {e.key[:60]}")
 
 
 def phase_compact_serve(dev) -> None:
@@ -1642,7 +1722,379 @@ def phase_serve_full_width(dev, smi: str) -> dict:
             "at_rebase": at_rebase, "times": out}
 
 
+def _attn_count(module) -> int:
+    from open_genie_tpu_torch.modules.attention import Attention
+
+    return sum(isinstance(m, Attention) for m in module.modules())
+
+
+def _train_steps(label: str, path: str, step, batch, expect: dict, module, trainable,
+                 steps: int, smi: str, allowed_zero=(), **kwargs) -> dict:
+    """`steps` calls of the train step `step(batch, **kwargs)` after a
+    warm-up call: finite loss and grad norm, launches per step equal to
+    `expect` and at the shapes of `PATH_CASES[path]` (every K1, K3 and K4
+    on the tensor cores), and a nonzero gradient on every parameter named in
+    `trainable` (but `allowed_zero`) in the warm-up call (whose hooks sync
+    the host, so it is not timed). Returns the times, peak memory,
+    launches and shapes of the last step."""
+    nonzero = {}
+    params = dict(module.named_parameters())
+    hooks = [params[n].register_post_accumulate_grad_hook(
+        lambda p, n=n: nonzero.__setitem__(n, nonzero.get(n, 0) + int(p.grad.count_nonzero())))
+        for n in trainable]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(1 + steps):
+        if i == 1:
+            for h in hooks:
+                h.remove()
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        metrics = step(batch, **kwargs)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        counts, shapes = _read_counts(), _read_shapes()
+        variants = _assert_path_kernels(label, path, show=i == 0)
+        assert all(variants[name]["mma"] == counts[name] for name in _FLASH)
+        loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
+        terms = {k: round(v.item(), 4) for k, v in metrics.items()
+                 if k not in ("loss", "grad_norm") and v.numel() == 1}
+        print(f"[{label}] step {i}{' (warm-up)' if i == 0 else ''}: loss {loss:.4f}, grad_norm "
+              f"{norm:.4f}, {times[-1]:.1f} ms, terms {terms}, launches {counts}")
+        assert math.isfinite(loss) and math.isfinite(norm), "non-finite loss or grad_norm"
+        assert all(math.isfinite(v) for v in terms.values()), "a non-finite loss term"
+        assert counts == expect, f"launches {counts}, expected {expect}"
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    zero = [n for n in trainable if nonzero.get(n, 0) == 0 and n not in allowed_zero]
+    print(f"[{label}] nonzero gradient in the warm-up step on "
+          f"{sum(nonzero.get(n, 0) > 0 for n in trainable)}/{len(trainable)} trainable "
+          f"parameters")
+    assert not zero, f"no gradient reached {zero}"
+    ms = statistics.median(times[1:])
+    print(f"[{label}] {smi}: {ms:.1f} ms per step (median of steps 1-{steps}, min "
+          f"{min(times[1:]):.1f}, max {max(times[1:]):.1f}; warm-up {times[0]:.1f} ms); peak "
+          f"memory {peak:.2f} GiB; launches per step {counts}")
+    for name in _FLASH:
+        print(f"[{label}] {name} launches per step by (B*H, N, D, causal): {shapes[name]}")
+    return {"ms": ms, "warmup_ms": times[0], "peak_gib": peak, "launches": counts,
+            "shapes": shapes}
+
+
+def _inference(label: str, path: str, run, expect: dict, smi: str) -> tuple:
+    """`run()` once with the counts at 0: its result, ms, peak memory,
+    launches (equal to `expect`) at the shapes of `PATH_CASES[path]`, all
+    on the tensor cores."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    counts, shapes = _read_counts(), _read_shapes()
+    variants = _assert_path_kernels(label, path, show=False)
+    assert variants["flash_attention_fwd"]["mma"] == counts["flash_attention_fwd"]
+    print(f"[{label}] {smi}: {ms:.1f} ms, peak memory {peak:.2f} GiB; launches {counts}; "
+          f"K1 by (B*H, N, D, causal) {shapes['flash_attention_fwd']}")
+    assert counts == expect, f"launches {counts}, expected {expect}"
+    return out, {"ms": ms, "peak_gib": peak, "launches": counts, "shapes": shapes}
+
+
+def phase_stage1(dev, smi: str) -> dict:
+    """Stage 1: `TokenizerTrainModule(**tokenize_yaml_config())` (the
+    repo's `configs/tokenize.yaml`: a 64-wide encoder into the 10-bit
+    codebook through the LFQ's projection) on its own batch, 8 x 16 frames
+    x 64x64, bf16 compute on f32 weights, AdamW lr 1e-3, wd 0.01, the VGG
+    frozen; a warm-up step and 3 steps; then `evaluate_tokenizer` of a bf16
+    copy over 2 batches."""
+    from open_genie_tpu_torch.eval import evaluate_tokenizer
+    from open_genie_tpu_torch.models.configs import tokenize_yaml_config
+    from open_genie_tpu_torch.train.losses import TokenizerTrainModule, frozen_param_mask
+    from open_genie_tpu_torch.train.loop import make_optimizer, make_train_step
+    from open_genie_tpu_torch.utils import init_weights
+
+    torch.backends.cudnn.deterministic = True
+    g = torch.Generator().manual_seed(SEED + 16)
+    module = init_weights(TokenizerTrainModule(**tokenize_yaml_config()), g).to(dev)
+    assert module.model.quant.project and not module.model.head_fusable()
+    frozen = frozen_param_mask(module, ("perc_crit",))
+    opt = make_optimizer(module, lr=1e-3, weight_decay=0.01, frozen_mask=frozen)
+    step = make_train_step(module, opt, compute_dtype=torch.bfloat16)
+    video = torch.rand(*STAGE1_BATCH, 64, 64, 3, generator=g).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    n_tok, n_disc = _attn_count(module.model), _attn_count(module.gan_crit)
+    # remat: each tokenizer attention runs K1 again in the backward; the
+    # discriminator runs three times (d_fs, d_f, d_r), each with a backward.
+    # d = 10: the entropy takes the direct softmax, not K5/K6.
+    expect = {"flash_attention_fwd": 2 * n_tok + 3 * n_disc,
+              "flash_attention_bwd_dkv": n_tok + 3 * n_disc,
+              "flash_attention_bwd_dq": n_tok + 3 * n_disc, "lfq_head": 0,
+              "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0}
+    print(f"[stage1] {sum(p.numel() for p in module.parameters()) / 1e6:.1f}M parameters, "
+          f"{sum(p.numel() for p in opt.params) / 1e6:.1f}M trainable; attentions: tokenizer "
+          f"{n_tok}, discriminator {n_disc}")
+    vgg_before = {n: p.detach().clone() for n, p in module.perc_crit.named_parameters()}
+    out = _train_steps("stage1", "stage1_train", step, video, expect, module,
+                       [n for n in frozen if frozen[n]], 3, smi,
+                       # the hinge gives D's output bias no gradient while
+                       # every score lies in the margin (see phase 12)
+                       allowed_zero=("gan_crit.disc.head.bias",), generator=gen)
+    assert all(torch.equal(p, vgg_before[n]) for n, p in module.perc_crit.named_parameters())
+    frames = video.shape[0] * video.shape[1]
+    out["frames_per_s"] = frames / out["ms"] * 1e3
+    print(f"[stage1] {smi}: {out['frames_per_s']:.1f} frames/s; VGG parameters bit-unchanged")
+    _profile_step("stage1", lambda: step(video, generator=gen), out["ms"])
+
+    tok16 = copy.deepcopy(module.model).to(torch.bfloat16).eval()
+    del module, opt, step
+    torch.cuda.empty_cache()
+    loader = [torch.rand(*STAGE1_BATCH, 64, 64, 3, generator=g) for _ in range(2)]
+    scores, ev = _inference(
+        "stage1 eval", "stage1_eval", lambda: evaluate_tokenizer(tok16, loader),
+        {"flash_attention_fwd": 2 * n_tok, "flash_attention_bwd_dkv": 0,
+         "flash_attention_bwd_dq": 0, "lfq_head": 0, "lfq_entropy_fwd": 0,
+         "lfq_entropy_bwd": 0}, smi)
+    print(f"[stage1 eval] {smi}: PSNR {scores['psnr']:.3f} dB, SSIM {scores['ssim']:.4f}, "
+          f"usage {scores['usage']:.4f} ({scores['distinct_codes']:.0f} of 1024 codes), "
+          f"perplexity {scores['perplexity']:.1f}, over {scores['num_batches']} batches")
+    assert scores["num_batches"] == 2 and all(math.isfinite(v) for v in scores.values())
+    assert scores["num_tokens"] == 2 * math.prod(STAGE1_BATCH) * 32 * 32
+    out["eval"] = {**ev, "scores": scores}
+    return out
+
+
+def phase_stage2_3(dev, smi: str) -> dict:
+    """Stage 2 -> 3: `ActionTrainModule` at `genie_train_config()`'s latent
+    action (batch 4 x 16 x 64x64, bf16, AdamW lr 1e-4); its weights into a
+    `Genie(**genie_train_config())` whose `tokenize_with_actions` turns 32
+    clips of 16 frames (chunks of 4) into tokens (32, 16, 16, 16) and
+    actions (32, 16), K2 once a chunk; `DynamicsTrainModule(
+    **dynamics_yaml_config())` on that batch, 3 steps at a constant lr 3e-4
+    (the YAML's warm-up and cosine schedule wait for the trainer stack);
+    cached `generate` of a bf16 copy, 10 steps, one frame onto 15; and
+    `evaluate_dynamics` over two batches of 16."""
+    from open_genie_tpu_torch.eval import evaluate_dynamics
+    from open_genie_tpu_torch.models.configs import dynamics_yaml_config, genie_train_config
+    from open_genie_tpu_torch.models.genie import Genie
+    from open_genie_tpu_torch.ops.kernels.lfq_head import lfq_head
+    from open_genie_tpu_torch.train.losses import ActionTrainModule, DynamicsTrainModule
+    from open_genie_tpu_torch.train.loop import make_optimizer, make_train_step
+    from open_genie_tpu_torch.utils import init_weights
+
+    torch.backends.cudnn.deterministic = True
+    g = torch.Generator().manual_seed(SEED + 18)
+    cfg = genie_train_config()
+    none = {"flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
+            "lfq_head": 0, "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0}
+    act = init_weights(ActionTrainModule(cfg["latent_action"]), g).to(dev)
+    opt = make_optimizer(act, lr=1e-4, weight_decay=0.01)
+    n_la = _attn_count(act)
+    # Remat: K1 twice per attention; d = 8, so no K5/K6.
+    out = {"action": _train_steps(
+        "action train", "action_train", make_train_step(act, opt, compute_dtype=torch.bfloat16),
+        torch.rand(*STAGE2_BATCH, 64, 64, 3, generator=g).to(dev),
+        {**none, "flash_attention_fwd": 2 * n_la, "flash_attention_bwd_dkv": n_la,
+         "flash_attention_bwd_dq": n_la}, act, list(dict(act.named_parameters())), 3, smi)}
+
+    genie = init_weights(Genie(**cfg), g)
+    genie.latent_action.load_state_dict(act.model.state_dict())
+    genie = genie.to(dev, torch.bfloat16).eval()
+    del act, opt
+    clips = torch.rand(*STAGE3_BATCH, 64, 64, 3, generator=g)
+    n_chunks = STAGE3_BATCH[0] // STAGE3_CHUNK
+    n_tok = sum(_attn_count(layer) for layer in genie.tokenizer.enc_layers)
+    n_la = _attn_count(genie.latent_action)
+
+    def tokenize():
+        parts = [genie.tokenize_with_actions(c.to(dev, torch.bfloat16))
+                 for c in clips.split(STAGE3_CHUNK)]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+    (tokens, actions), tw = _inference(
+        "tokenize_with_actions", "tokenize_with_actions", tokenize,
+        {**none, "flash_attention_fwd": n_chunks * (n_tok + n_la), "lfq_head": n_chunks}, smi)
+    k2 = dict(lfq_head.launches_by_shape)
+    print(f"[tokenize_with_actions] tokens {tuple(tokens.shape)} in [{int(tokens.min())}, "
+          f"{int(tokens.max())}], actions {tuple(actions.shape)} in [{int(actions.min())}, "
+          f"{int(actions.max())}]; K2 by (N, C, d) {k2}")
+    assert tuple(tokens.shape) == (*STAGE3_BATCH, 16, 16)
+    assert tuple(actions.shape) == STAGE3_BATCH
+    assert 0 <= int(tokens.min()) and int(tokens.max()) < 1024
+    assert 0 <= int(actions.min()) and int(actions.max()) < 256
+    assert k2 == {(STAGE3_CHUNK * STAGE3_BATCH[1] * 256, 64, 10): n_chunks}, (
+        f"K2 launched at {k2}")
+    out["tokenize_with_actions"] = {**tw, "k2_shapes": {str(k): v for k, v in k2.items()}}
+    del genie
+    torch.cuda.empty_cache()
+
+    dyn = init_weights(DynamicsTrainModule(**dynamics_yaml_config()), g).to(dev)
+    opt = make_optimizer(dyn, lr=3e-4, weight_decay=0.01)
+    n_dyn, n_layers = _attn_count(dyn), len(dyn.model.layers)
+    batch = {"tokens": tokens, "actions": actions}
+    step = make_train_step(dyn, opt, compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)  # the stage-3 masks and noise
+    out["dynamics"] = _train_steps(
+        "dynamics train", "dynamics_train", step, batch,
+        {**none, "flash_attention_fwd": n_dyn, "flash_attention_bwd_dkv": n_dyn,
+         "flash_attention_bwd_dq": n_dyn}, dyn, list(dict(dyn.named_parameters())), 3, smi,
+        generator=gen)
+    _profile_step("dynamics train", lambda: step(batch, generator=gen),
+                  out["dynamics"]["ms"])
+
+    dyn16 = copy.deepcopy(dyn.model).to(torch.bfloat16).eval()
+    del dyn, opt, step
+    assert dyn16.supports_cached_decode()
+    steps, hist = 10, STAGE3_BATCH[1] - 1
+    new, gen_out = _inference(
+        "generate", "generate",
+        lambda: dyn16.generate(tokens[:, :hist], actions[:, :hist], steps, generator=gen),
+        {**none, "flash_attention_fwd": n_layers * (hist + steps)}, smi)
+    print(f"[generate] {tuple(new.shape)}, new frame's ids in [{int(new[:, hist].min())}, "
+          f"{int(new[:, hist].max())}]")
+    assert tuple(new.shape) == (STAGE3_BATCH[0], hist + 1, 16, 16)
+    assert torch.equal(new[:, :hist], tokens[:, :hist])
+    assert 0 <= int(new.min()) and int(new.max()) < 1024
+    out["generate"] = gen_out
+
+    half = STAGE3_BATCH[0] // 2
+    loader = [{"tokens": tokens[:half], "actions": actions[:half]},
+              {"tokens": tokens[half:], "actions": actions[half:]}]
+    scores, ev = _inference(
+        "eval dynamics", "eval_dynamics",
+        lambda: evaluate_dynamics(dyn16, loader, generator=gen),
+        {**none, "flash_attention_fwd": 2 * n_dyn}, smi)
+    print(f"[eval dynamics] {smi}: loss {scores['loss']:.4f}, masked_acc "
+          f"{scores['masked_acc']:.4f}, masked_frac {scores['masked_frac']:.4f} over "
+          f"{scores['num_batches']} batches")
+    assert scores["num_batches"] == 2 and all(math.isfinite(v) for v in scores.values())
+    out["eval_dynamics"] = {**ev, "scores": scores}
+    return out
+
+
+def phase_rollout_full(dev, smi: str) -> dict:
+    """`rollout_tokens_full` at `genie_rollout_config()` in bf16: a 64x64
+    prompt frame, 2 frames at 8 MaskGIT steps, each step re-forwarding the
+    dynamics over the whole 3-frame buffer. Its tokens in range; the share
+    equal to the cached `rollout_tokens` under the same noise is printed,
+    not held (bf16 can flip a tied commit)."""
+    from open_genie_tpu_torch.models.configs import genie_rollout_config
+    from open_genie_tpu_torch.models.genie import Genie
+    from open_genie_tpu_torch.utils import init_weights
+
+    torch.backends.cudnn.deterministic = True
+    g = torch.Generator().manual_seed(SEED + 20)
+    genie = init_weights(Genie(**genie_rollout_config()), g).to(dev, torch.bfloat16).eval()
+    frames, spf = 2, 8
+    prompt = torch.rand(1, 1, 64, 64, 3, generator=g).to(dev, torch.bfloat16)
+    actions = torch.randint(0, genie.act_vocab, (1, 1 + frames), generator=g).to(dev)
+    n_tok = sum(_attn_count(layer) for layer in genie.tokenizer.enc_layers)
+    n_dyn = _attn_count(genie.dynamics)
+    # Both rollouts draw the same noise: a generator of the same seed each.
+    noise = lambda: torch.Generator(device=dev).manual_seed(SEED + 21)  # noqa: E731
+
+    def run():
+        tokens = genie.tokenize_prompt(prompt)
+        return tokens, genie.rollout_tokens_full(tokens, actions, frames, spf, generator=noise())
+
+    (tokens, full), out = _inference(
+        "rollout full", "rollout_full", run,
+        {"flash_attention_fwd": n_tok + frames * spf * n_dyn, "flash_attention_bwd_dkv": 0,
+         "flash_attention_bwd_dq": 0, "lfq_head": 1, "lfq_entropy_fwd": 0,
+         "lfq_entropy_bwd": 0}, smi)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cached = genie.rollout_tokens(tokens, actions, frames, spf, generator=noise())
+    torch.cuda.synchronize()
+    cached_ms = (time.perf_counter() - t0) * 1e3
+    same = (cached[:, 1:] == full[:, 1:]).float().mean().item()
+    print(f"[rollout full] tokens {tuple(full.shape)} in [{int(full.min())}, "
+          f"{int(full.max())}]; {same:.4f} of the generated tokens equal the cached "
+          f"rollout_tokens' under the same noise; {smi}: {out['ms'] / frames:.1f} ms per "
+          f"generated frame (with the prompt's tokenize), cached {cached_ms / frames:.1f}")
+    assert tuple(full.shape) == (1, 1 + frames, 16, 16)
+    assert torch.equal(full[:, :1], tokens)
+    assert 0 <= int(full.min()) and int(full.max()) < 2 ** 10
+    return {**out, "equal_to_cached": same, "cached_ms": cached_ms}
+
+
+def phase_stage_shapes(dev, launches: dict) -> list:
+    """K1, and K3 and K4 where a training path of phases 16 to 18 launched
+    them, in bf16 at every shape that those paths brought and no earlier
+    path has, as CUDA graphs: beside PyTorch's flash forward (SDPA) and
+    aten's flash backward, the plain twins where one call holds at most
+    2^27 logits, the bounds and each path's launches of the shape
+    (`launches`: path -> kernel -> shape -> count, one step or one call)."""
+    from open_genie_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_bwd_plain,
+        flash_attention_plain,
+    )
+
+    older = {c for path, cases in PATH_CASES.items() if path not in STAGE_PATHS for c in cases}
+    new = sorted({c for path in STAGE_PATHS for c in PATH_CASES[path]} - older)
+    g = torch.Generator(device=dev).manual_seed(SEED + 22)
+    rows = []
+    for case in new:
+        bh, n, d, causal = case
+        per_path = {path: [launches[path][name].get(case, 0) for name in _FLASH]
+                    for path in STAGE_PATHS if case in PATH_CASES[path]}
+        trained = any(c[1] for c in per_path.values())
+        q, k, v, do = (torch.randn(bh, n, d, generator=g, device=dev, dtype=torch.bfloat16)
+                       for _ in range(4))
+        s = d ** -0.5
+        o, lse = flash_attention(q, k, v, s, causal)
+        fns = {"K1": lambda: flash_attention(q, k, v, s, causal),
+               "sdpa": lambda: sdpa_forward(q, k, v, s, causal)}
+        small = bh * n * n <= 2 ** 27
+        if small:
+            fns["K1 plain"] = lambda: flash_attention_plain(q, k, v, s, causal)
+        if trained:
+            delta = (do.float() * o.float()).sum(-1)
+            fns["K3"] = lambda: flash_attention_bwd_dkv(q, k, v, do, lse, delta, s, causal)
+            fns["K4"] = lambda: flash_attention_bwd_dq(q, k, v, do, lse, delta, s, causal)
+            fns["aten"] = aten_flash_backward(q, k, v, do, s, causal)
+            if small:
+                fns["bwd plain"] = lambda: flash_attention_bwd_plain(q, k, v, o, lse, do, s,
+                                                                     causal)
+        iters = 10 if bh * n * n > 2 ** 30 else 50
+        ms = alternate({name: (fn, iters) for name, fn in fns.items()}, graph=True)
+        _release_capture_stream()
+        row = {"shape": list(case), "launches": per_path, "K1": {
+            "ms": ms["K1"], "library_ms": ms["sdpa"], "plain_ms": ms.get("K1 plain"),
+            **flash_bound("fwd", bh, n, d, causal)}}
+        text = (f"K1 {ms['K1']:.4f} ms, SDPA flash forward {ms['sdpa']:.4f}, plain "
+                f"{ms['K1 plain']:.4f}" if small else
+                f"K1 {ms['K1']:.4f} ms, SDPA flash forward {ms['sdpa']:.4f}, plain not timed "
+                f"(over 2^27 logits)")
+        text += f", bound {row['K1']['bound_ms']:.5f} ({row['K1']['bound_by']})"
+        if trained:
+            for label, kind in (("K3", "dkv"), ("K4", "dq")):
+                row[label] = {"ms": ms[label], "library_ms": ms["aten"],
+                              "plain_ms": ms.get("bwd plain"),
+                              **flash_bound(kind, bh, n, d, causal)}
+            text += (f"; K3 {ms['K3']:.4f}, K4 {ms['K4']:.4f}, K3 + K4 "
+                     f"{ms['K3'] + ms['K4']:.4f} ms, aten flash backward {ms['aten']:.4f}"
+                     + (f", plain backward {ms['bwd plain']:.4f}" if small else "")
+                     + f", bound K3 {row['K3']['bound_ms']:.5f} ({row['K3']['bound_by']}), "
+                     f"K4 {row['K4']['bound_ms']:.5f} ({row['K4']['bound_by']})")
+        print(f"[stage shapes] bf16 (BH,N,D,causal)={case}, CUDA graphs: {text}; launches "
+              f"(K1, K3, K4) per step or call {per_path}")
+        rows.append(row)
+        del q, k, v, do, o, lse, fns
+    return rows
+
+
 def main() -> int:
+    global SEED
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=SEED,
+                        help="seed of every phase's weights, data and noise")
+    SEED = parser.parse_args().seed
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this runs on an "
               "NVIDIA GPU", file=sys.stderr)
@@ -1665,23 +2117,45 @@ def main() -> int:
     phase_backward_shapes(dev, {"train_step": train_shapes, "tokenizer_train": tok_shapes})
     phase_compact_serve(dev)
     serve = phase_serve_full_width(dev, device["smi"])
+    stage1 = phase_stage1(dev, device["smi"])
+    stage23 = phase_stage2_3(dev, device["smi"])
+    full = phase_rollout_full(dev, device["smi"])
+    stage = {"stage1_train": stage1, "stage1_eval": stage1["eval"],
+             "action_train": stage23["action"],
+             "tokenize_with_actions": stage23["tokenize_with_actions"],
+             "dynamics_train": stage23["dynamics"], "generate": stage23["generate"],
+             "eval_dynamics": stage23["eval_dynamics"], "rollout_full": full}
+    shape_rows = phase_stage_shapes(dev, {path: stage[path]["shapes"] for path in STAGE_PATHS})
     kernels = [k1, k2, k3, k4, k5, k6]
     for k in kernels:
         name = k["name"]
-        by_path = {"serve": serve["launches"][name], "tokenizer_train": tok_train[name],
+        by_path = {**{path: stage[path]["launches"][name] for path in STAGE_PATHS},
+                   "serve": serve["launches"][name], "tokenizer_train": tok_train[name],
                    "train_step": train.get(name, 0), "rollout": rollout.get(name, 0)}
-        # The newest path that runs the kernel: the session (a reset and
-        # its SERVE_STEPS + 1 steps) for K1 and K2, one tokenizer training
-        # step for K3 to K6.
+        # The newest path that runs the kernel, in the order above: one
+        # stage-1 training step (tokenize.yaml) for K1, K3 and K4, the
+        # stage-2 tokenize_with_actions of 32 clips for K2, one MAGVIT2
+        # tokenizer training step for K5 and K6.
         k["launches"] = next((c for c in by_path.values() if c > 0), 0)
         k["launches_by_path"] = by_path
         k["serve_launches"] = {"per_reset": serve["per_reset"][name],
                                "per_step": serve["per_step"][name],
                                "at_rebase": serve["at_rebase"][name]}
+        label = {"flash_attention_fwd": "K1", "flash_attention_bwd_dkv": "K3",
+                 "flash_attention_bwd_dq": "K4"}.get(name)
+        if label:
+            k["stage_shapes"] = [{"shape": r["shape"], **r[label],
+                                  "launches_by_path": {p: c[_FLASH.index(name)]
+                                                       for p, c in r["launches"].items()}}
+                                 for r in shape_rows if label in r]
         missing = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                    "plain_ms", "bound_ms", "bound_by", "library_ms", "variant"} - set(k)
         assert not missing, f"{k['name']} lacks {missing}"
-    print(json.dumps({"kernels": kernels, "serve": serve["times"]}))
+    stages = {path: {key: v for key, v in stage[path].items()
+                     if key in ("ms", "warmup_ms", "peak_gib", "frames_per_s", "scores",
+                                "equal_to_cached", "cached_ms")}
+              for path in STAGE_PATHS}
+    print(json.dumps({"kernels": kernels, "serve": serve["times"], "stages": stages}))
     print(json.dumps({"ok": True, "device": {k: device[k] for k in ("platform", "kind", "count")}}))
     return 0
 

@@ -7,7 +7,7 @@ attention only (`cond=(None, q_act)`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -17,8 +17,10 @@ from open_genie_tpu_torch.modules import (
     blueprint_st_factor,
     parse_blueprint,
 )
+from open_genie_tpu_torch.modules.attention import SpaceTimeAttention
 from open_genie_tpu_torch.modules.quantization import LookupFreeQuantization
 from open_genie_tpu_torch.modules.video import CausalConv3d
+from open_genie_tpu_torch.ops.lfq import codebook_entries
 from open_genie_tpu_torch.utils import cast_tuple
 
 
@@ -83,15 +85,26 @@ class LatentAction(nn.Module):
             bit_balance_weight=lfq_bit_balance_weight,
         )
 
-    def encode(self, video: torch.Tensor):
+    def sample(self, idxs: torch.Tensor) -> torch.Tensor:
+        """Action ids -> their float32 `{-1, +1}^d` codewords (how a user's
+        action ids become action codes at inference)."""
+        return codebook_entries(idxs, self.d_codebook)
+
+    def encode(self, video: torch.Tensor, mask: Optional[torch.Tensor] = None):
         """Video `(B, T, H, W, C)` -> `((q_act, idxs, enc_video), q_loss,
         q_aux)`: the `(B, T, d)` quantized action code, the `(B, T)` action
         ids and the encoder features that `decode` takes. In training the
         code carries the straight-through gradient and `q_loss` is the LFQ
-        loss; outside training `q_loss` is None."""
+        loss; outside training `q_loss` is None.
+
+        `mask` (bool, True = attend), where given, reaches every attention
+        of the encoder's space-time blocks, spatial and temporal alike, as
+        in the JAX package: it must broadcast to both `(B T, heads, H' W',
+        H' W')` and `(B H' W', heads, T, T)`."""
         x = self.proj_in(video)
         for layer in self.enc_layers:
-            x = layer(x)
+            x = layer(x, mask=mask) if mask is not None and isinstance(
+                layer, SpaceTimeAttention) else layer(x)
         b, t = x.shape[:2]
         act = self.to_act(x.reshape(b, t, -1))
         (q_act, idxs), q_loss, q_aux = self.quant(act, training=self.training)
@@ -105,10 +118,11 @@ class LatentAction(nn.Module):
             x = layer(x, (None, q_act)) if has_ext else layer(x)
         return self.proj_out(x)
 
-    def forward(self, video: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:
+    def forward(self, video: torch.Tensor, mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:
         """Full VQ-VAE pass -> `(idxs, loss, aux)`: reconstruction MSE plus
-        the weighted LFQ loss."""
-        (q_act, idxs, enc_video), q_loss, q_aux = self.encode(video)
+        the weighted LFQ loss. `mask` goes to the encoder (`encode`)."""
+        (q_act, idxs, enc_video), q_loss, q_aux = self.encode(video, mask)
         recon = self.decode(enc_video, q_act)
         rec_loss = ((recon - video) ** 2).mean()
         loss = rec_loss

@@ -1,6 +1,7 @@
 """MaskGIT DynamicsModel (twin of `open_genie_tpu.models.dynamics`): the
-full forward and its Bernoulli-masked training loss, and the KV-cached
-frame decode of the rollout. `generate` is not ported yet."""
+full forward and its Bernoulli-masked training loss, the KV-cached frame
+decode of the rollout, and `generate`, which appends one frame by MaskGIT
+refinement, through the KV caches where the trunk allows it."""
 from __future__ import annotations
 
 from math import pi
@@ -182,3 +183,61 @@ class DynamicsModel(nn.Module):
         for layer, layer_cache in zip(self.layers, cache):
             x, _ = layer(x, cache=layer_cache, cache_pos=pos, cache_write=commit)
         return self.head(x[:, 0]), cache
+
+    def supports_cached_decode(self) -> bool:
+        """Whether `generate` can refine through the KV-cached frame decode:
+        only an all-`space-time_attn` trunk has decode caches; any other
+        trunk re-forwards the whole clip every step."""
+        return all((d if isinstance(d, str) else d[0]) == "space-time_attn" for d in self.desc)
+
+    @torch.inference_mode()
+    def generate(
+        self,
+        tokens: torch.Tensor,
+        act_id: torch.Tensor,
+        steps: int = 10,
+        which: str = "linear",
+        temp: float = 1.0,
+        masked_tok: int = 0,
+        use_cache: bool = True,
+        top_k: Optional[int] = None,
+        generator: Optional[torch.Generator] = None,
+        gumbel: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Append one frame to the `(B, T, H, W)` token history by `steps`
+        MaskGIT refinements: `(B, T + 1, H, W)` tokens.
+
+        `act_id` `(B, T)` are the history's actions; the appended frame
+        takes a zero action (the "mock" action slot). Each step conditions
+        on the tokens committed so far, the rest filled with `masked_tok`.
+        With `use_cache` and an all-`space-time_attn` trunk the history is
+        prefilled into KV caches once and each step decodes only the new
+        frame; otherwise each step re-forwards the whole clip. The noise is
+        `gumbel`, a `(steps, B, H*W, V)` tensor, or drawn from `generator`.
+        """
+        b, t, h, w = tokens.shape
+        schedule = get_schedule(steps, (h, w), which)
+        mask = torch.ones(b, h * w, dtype=torch.bool, device=tokens.device)
+        code = torch.full((b, h * w), masked_tok, dtype=tokens.dtype, device=tokens.device)
+        act_new = act_id.new_zeros(b)
+        if use_cache and self.supports_cached_decode():
+            cache = self.init_cache(b, h, w, t + 1, device=tokens.device)
+            for pos in range(t):
+                _, cache = self.decode_frame(tokens[:, pos], act_id[:, pos], cache, pos)
+
+            def logits_of(frame):
+                return self.decode_frame(frame, act_new, cache, t, commit=False)[0]
+        else:
+            grid = torch.cat([tokens, tokens.new_full((b, 1, h, w), masked_tok)], dim=1)
+            acts = torch.cat([act_id, act_new[:, None]], dim=1)
+
+            def logits_of(frame):
+                grid[:, -1] = frame
+                return self(grid, acts)[:, -1]
+        for s, num_tokens in enumerate(schedule):
+            frame = code.masked_fill(mask, masked_tok).view(b, h, w)
+            mask, code = maskgit_commit(
+                logits_of(frame).reshape(b, h * w, -1), mask, code, int(num_tokens), temp,
+                top_k=top_k, generator=generator, gumbel=None if gumbel is None else gumbel[s],
+            )
+        return torch.cat([tokens, code.view(b, 1, h, w)], dim=1)

@@ -7,7 +7,11 @@ those tokens and actions is added to it.
 
 Rollout (`forward`): the prompt is tokenized, each new frame is generated
 by KV-cached MaskGIT refinement of the dynamics model, and the token video
-is decoded to pixels.
+is decoded to pixels. `rollout_tokens_full` is the same rollout without
+caches, re-forwarding the whole clip each step.
+
+Staged training: `tokenize_with_actions` turns video into the token and
+action batches that `train.losses.DynamicsTrainModule` trains on.
 
 Serving (`session_*`, `decode_window`, `init_pixel_stream`,
 `decode_stream_frame`): the steps of `serve.InteractiveSession`, one
@@ -48,16 +52,20 @@ class Genie(nn.Module):
         video: torch.Tensor,
         mask: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        return_act_idxs: bool = False,
     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Joint latent-action + dynamics loss on `(B, T, H, W, C)` video.
 
         The tokenizer runs frozen, with no graph. The latent-action model
         trains its LFQ (and applies dropout) when this module is in
         training mode. The dynamics' Bernoulli mask is `mask` or drawn from
-        `generator` (see `DynamicsModel.compute_loss`).
+        `generator` (see `DynamicsModel.compute_loss`). `return_act_idxs`
+        adds the `(B, T)` per-input-frame action ids to the aux dict as
+        `act_idxs` (for evaluation; the train step wants scalars).
         """
         _, tok_idxs = self.tokenizer.tokenize_frozen(video)
         act_idxs, act_loss, act_aux = self.latent_action(video)
+        act_idxs_full = act_idxs
         act_idxs = self.align_actions(act_idxs, tok_idxs.shape[1])
         dyn_loss, dyn_aux = self.dynamics.compute_loss(
             tok_idxs, act_idxs, mask=mask, generator=generator
@@ -68,7 +76,40 @@ class Genie(nn.Module):
             **{f"act_{k}": v for k, v in act_aux.items()},
             **{f"dyn_{k}": v for k, v in dyn_aux.items()},
         }
+        if return_act_idxs:
+            aux["act_idxs"] = act_idxs_full
         return act_loss + dyn_loss, aux
+
+    @torch.inference_mode()
+    def tokenize_with_actions(self, video: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Frozen-model inference for stage-3 training data: `(B, T, H, W,
+        C)` video -> `(B, T', H', W')` tokens and the `(B, T')` action ids
+        aligned to the token time axis. The latent action runs in eval mode
+        (no LFQ loss, no dropout) whatever this module's mode."""
+        tokens = self.tokenize_prompt(video)
+        was_training = self.latent_action.training
+        self.latent_action.eval()
+        try:
+            act_idxs, _, _ = self.latent_action(video)
+        finally:
+            self.latent_action.train(was_training)
+        return tokens, self.align_actions(act_idxs, tokens.shape[1])
+
+    def init_full(
+        self,
+        video: torch.Tensor,
+        mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """The joint loss plus 0 x the mean of the tokenizer's
+        reconstruction, as the JAX package's initialization path computes
+        it. Every parameter exists from construction here, so this only
+        gives that value (the reconstruction carries no graph)."""
+        loss, _ = self.compute_loss(video, mask=mask, generator=generator)
+        with torch.no_grad():
+            _, idxs = self.tokenizer.tokenize_frozen(video)
+            rec = self.tokenizer.decode(self.tokenizer.quant.decode_entries(idxs))
+        return loss + 0.0 * rec.float().mean()
 
     @staticmethod
     def align_actions(act_idxs: torch.Tensor, t_tok: int) -> torch.Tensor:
@@ -144,6 +185,50 @@ class Genie(nn.Module):
                 None if gumbel is None else gumbel[f],
             )
             buf[:, tgt] = frame
+        return buf
+
+    @torch.inference_mode()
+    def rollout_tokens_full(
+        self,
+        tokens: torch.Tensor,
+        actions: torch.Tensor,
+        num_frames: int,
+        steps_per_frame: int = 25,
+        temp: float = 1.0,
+        which: str = "linear",
+        top_k: Optional[int] = None,
+        generator: Optional[torch.Generator] = None,
+        gumbel: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Autoregressive MaskGIT rollout without caches: every refinement
+        step re-forwards the dynamics over the whole fixed buffer of `T0 +
+        num_frames` frames (the frames after the one being generated are
+        zeros, which causal temporal attention keeps from the frames before
+        them). Serves trunks that have no decode caches; token-exact with
+        `rollout_tokens` given the same noise, up to rounding.
+
+        `tokens` `(B, T0, H, W)`, `actions` `(B, >= T0 + num_frames)`; the
+        noise is `gumbel`, a `(num_frames, steps_per_frame, B, H*W, V)`
+        tensor, or drawn from `generator`. Returns `(B, T0 + num_frames, H,
+        W)` tokens."""
+        b, t0, h, w = tokens.shape
+        total = t0 + num_frames
+        schedule = get_schedule(steps_per_frame, (h, w), which)
+        buf = torch.cat([tokens, tokens.new_zeros(b, num_frames, h, w)], dim=1)
+        acts = actions[:, :total]
+        for f in range(num_frames):
+            tgt = t0 + f
+            mask = torch.ones(b, h * w, dtype=torch.bool, device=tokens.device)
+            code = torch.zeros(b, h * w, dtype=buf.dtype, device=tokens.device)
+            for s, num_tokens in enumerate(schedule):
+                buf[:, tgt] = code.masked_fill(mask, 0).view(b, h, w)
+                logits = self.dynamics(buf, acts)[:, tgt]
+                mask, code = maskgit_commit(
+                    logits.reshape(b, h * w, -1), mask, code, int(num_tokens), temp,
+                    top_k=top_k, generator=generator,
+                    gumbel=None if gumbel is None else gumbel[f][s],
+                )
+            buf[:, tgt] = code.view(b, h, w)
         return buf
 
     def _refine_frame(self, cache, tgt, act_t, schedule, temp, bhw, dtype,

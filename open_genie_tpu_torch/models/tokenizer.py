@@ -124,8 +124,10 @@ class VideoTokenizer(nn.Module):
 
     def head_fusable(self) -> bool:
         """The encoder ends in a 1x1x1 stride-1 `causal-conv3d` projecting
-        straight to the codebook width (no LFQ projection): then the head
-        conv and the LFQ sign and index fuse into kernel K2."""
+        straight to the width of one codebook (so no LFQ projection): then
+        the head conv and the LFQ sign and index fuse into kernel K2. With
+        an LFQ projection or several codebooks the head is not fusable and
+        tokenizing takes the unfused path."""
         if self.n_codebook != 1 or not self.enc_desc:
             return False
         last = self.enc_desc[-1]
@@ -169,7 +171,9 @@ class VideoTokenizer(nn.Module):
 
     @torch.inference_mode()
     def decode_tokens(self, idxs: torch.Tensor) -> torch.Tensor:
-        """Integer token grid -> video, via the LFQ codebook."""
+        """Integer token grid `(B, T, H, W)` (`(B, T, H, W, c)` with several
+        codebooks) -> video, via the LFQ codebook and its output
+        projection."""
         return self.decode(self.quant.decode_entries(idxs))
 
     # ------------------------------------------------------------------ #
@@ -270,12 +274,13 @@ class VideoTokenizer(nn.Module):
 
     @torch.inference_mode()
     def decode_stream(self, idxs: torch.Tensor, cache: list, pos: int):
-        """Decode ONE token frame `(B, H, W)` (or `(B, 1, H, W)`) at
-        token-frame index `pos` against the streaming states `cache`,
-        which are updated in place. Returns `(pixels, cache)`, `pixels`
-        `(B, time_factor_total, H', W', C)`: the batch `decode_tokens`
-        output for that frame's pixel frames."""
-        if idxs.dim() == 3:
+        """Decode ONE token frame `(B, H, W)` (or `(B, 1, H, W)`; with
+        several codebooks a trailing axis of c) at token-frame index `pos`
+        against the streaming states `cache`, which are updated in place.
+        Returns `(pixels, cache)`, `pixels` `(B, time_factor_total, H', W',
+        C)`: the batch `decode_tokens` output for that frame's pixel
+        frames."""
+        if idxs.dim() == 3 + (self.n_codebook > 1):
             idxs = idxs[:, None]
         x = self.quant.decode_entries(idxs).to(module_dtype(self))
         # A per-frame adaptive norm reads only the current token frame's

@@ -98,10 +98,13 @@ class Attention(nn.Module):
         kv_cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
         cache_pos: Optional[int] = None,
         cache_write: bool = True,
+        mask: Optional[torch.Tensor] = None,
     ):
         """Full attention, or single-position self-attention decode against
         the `(B, heads, T_max, Dh)` buffers `kv_cache` at position
-        `cache_pos` (then returns `(out, (k_buf, v_buf))`)."""
+        `cache_pos` (then returns `(out, (k_buf, v_buf))`). `mask` (bool,
+        broadcastable to `(B, heads, N, N)`, True = attend) applies to full
+        attention, on top of the causal mask where there is one."""
         decode = kv_cache is not None
         if self._freq is not None:
             x = self._rope(x, cache_pos if decode else 0)
@@ -131,7 +134,7 @@ class Attention(nn.Module):
             valid = torch.arange(k_buf.shape[2], device=x.device) <= cache_pos
             attn = dot_product_attention(q, k_buf, v_buf, self.scale, mask=valid)
         else:
-            attn = dot_product_attention(q, k, v, self.scale, causal=self.causal)
+            attn = dot_product_attention(q, k, v, self.scale, causal=self.causal, mask=mask)
 
         out = self.to_out(attn.transpose(1, 2).reshape(b, n, -1))
         if self.dropout is not None:
@@ -175,13 +178,14 @@ class SpatialAttention(nn.Module):
             scale=scale, dropout=dropout, rope_kind="2d" if embed else None,
         )
 
-    def forward(self, video: torch.Tensor, cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, video: torch.Tensor, cond: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         if video.dim() == 4:
-            return self.forward(video[:, None], cond)[:, 0]
+            return self.forward(video[:, None], cond, mask)[:, 0]
         b, t, h, w, c = video.shape
         if cond is not None:
             cond = cond.repeat_interleave(t, dim=0)  # (B*T, HW, Ck)
-        out = self.attn(video.reshape(b * t, h * w, c), key=cond)
+        out = self.attn(video.reshape(b * t, h * w, c), key=cond, mask=mask)
         return out.reshape(b, t, h, w, out.shape[-1])
 
 
@@ -200,13 +204,14 @@ class TemporalAttention(nn.Module):
             rope_kind="1d" if embed else None,
         )
 
-    def forward(self, video, cond=None, kv_cache=None, cache_pos=None, cache_write=True):
+    def forward(self, video, cond=None, kv_cache=None, cache_pos=None, cache_write=True,
+                mask=None):
         b, t, h, w, c = video.shape
         seq = video.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, c)
         if cond is not None:
             cond = cond.repeat_interleave(h * w, dim=0)  # (B*H*W, T, Ck)
         out = self.attn(seq, key=cond, kv_cache=kv_cache, cache_pos=cache_pos,
-                        cache_write=cache_write)
+                        cache_write=cache_write, mask=mask)
         if kv_cache is not None:
             out, new_kv = out
         out = out.reshape(b, h, w, t, out.shape[-1]).permute(0, 3, 1, 2, 4)
@@ -294,25 +299,30 @@ class SpaceTimeAttention(nn.Module):
         conv = getattr(self, name, None)
         return x if conv is None else conv3d_cl(x, conv.weight, conv.bias)
 
-    def forward(self, video, cond=None, cache=None, cache_pos=None, cache_write=True):
+    def forward(self, video, cond=None, cache=None, cache_pos=None, cache_write=True,
+                mask=None):
         """Full forward on `(B, T, H, W, C)`, or cached decode of one frame
         `(B, 1, H, W, C)` at time `cache_pos` (returns `(out, cache)`).
 
         `cond` is one condition for both attentions or a `(space_cond,
         time_cond)` pair; each needs its attention built with `key_dim`
-        (`space_attn_kw` / `time_attn_kw`)."""
+        (`space_attn_kw` / `time_attn_kw`). `mask` (bool, True = attend)
+        goes to both attentions of the full forward, so it must broadcast
+        to the spatial and the temporal logits alike."""
         decode = cache is not None
         space_cond, time_cond = cond if isinstance(cond, tuple) else (cond, cond)
         if decode and (space_cond is not None or time_cond is not None):
             raise ValueError("cached decode does not support external conditioning")
-        video = self.space_attn(video, space_cond) + self._skip("space_skip", video)
+        if decode and mask is not None:
+            raise ValueError("cached decode does not take a mask")
+        video = self.space_attn(video, space_cond, mask) + self._skip("space_skip", video)
         if decode:
             ta, _ = self.temp_attn(  # writes K/V into `cache` on commit
                 video, kv_cache=(cache["k"], cache["v"]), cache_pos=cache_pos,
                 cache_write=cache_write,
             )
         else:
-            ta = self.temp_attn(video, time_cond)
+            ta = self.temp_attn(video, time_cond, mask=mask)
         video = ta + self._skip("time_skip", video)
         if decode:
             ffn = self._ffn_decode(video, cache, cache_write)

@@ -1,7 +1,7 @@
-"""Training-objective modules (twin of `open_genie_tpu.train.losses`).
-
-The tokenizer's full-loss objective and the Genie joint objective are
-ported; the latent-action and dynamics-only objectives are still to come.
+"""Training-objective modules (twin of `open_genie_tpu.train.losses`): the
+tokenizer's full-loss objective (stage 1), the standalone latent-action
+objective (stage 2), the dynamics-only objective over token batches
+(stage 3) and the Genie joint objective.
 """
 from __future__ import annotations
 
@@ -10,6 +10,8 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from open_genie_tpu_torch.models.action import LatentAction
+from open_genie_tpu_torch.models.dynamics import DynamicsModel
 from open_genie_tpu_torch.models.genie import Genie
 from open_genie_tpu_torch.models.tokenizer import VideoTokenizer
 from open_genie_tpu_torch.modules.loss import GANLoss, PerceptualLoss
@@ -120,6 +122,56 @@ class GenieTrainModule(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         return self.model.compute_loss(video, mask=mask, generator=generator)
+
+    def full_init(self, video: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """`Genie.init_full`: the joint loss plus 0 x the reconstruction."""
+        return self.model.init_full(video, mask=mask, generator=generator)
+
+    def generate(self, prompt: torch.Tensor, actions: torch.Tensor, num_frames: int = 16,
+                 steps_per_frame: int = 25, temp: float = 1.0, top_k: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None,
+                 gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The rollout `Genie.forward` of the model being trained."""
+        return self.model(prompt, actions, num_frames, steps_per_frame, temp, top_k,
+                          generator, gumbel)
+
+
+class ActionTrainModule(nn.Module):
+    """Standalone latent-action VQ-VAE pre-training (stage 2): the pixel
+    reconstruction MSE plus the weighted LFQ loss of `LatentAction`. The
+    LFQ loss and dropout follow this module's training mode."""
+
+    def __init__(self, latent_action: Dict[str, Any]):
+        super().__init__()
+        self.model = LatentAction(**latent_action)
+
+    def forward(self, video: torch.Tensor, mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """`(loss, metrics)` on `(B, T, H, W, C)` video: `loss` and the
+        model's terms as `act_*`."""
+        _, loss, aux = self.model(video, mask)
+        return loss, {"loss": loss, **{f"act_{k}": v for k, v in aux.items()}}
+
+
+class DynamicsTrainModule(nn.Module):
+    """Dynamics-only training over pre-tokenized clips (stage 3): batches
+    `{"tokens": (B, T', H', W'), "actions": (B, T')}`, the masked-token
+    cross-entropy of `DynamicsModel.compute_loss`."""
+
+    def __init__(self, dynamics: Dict[str, Any]):
+        super().__init__()
+        self.model = DynamicsModel(**dynamics)
+
+    def forward(self, batch: Dict[str, torch.Tensor], mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """`(loss, metrics)`: `loss`, `dyn_loss` (the same value) and the
+        model's terms as `dyn_*`. The Bernoulli mask is `mask` or drawn
+        from `generator`."""
+        loss, aux = self.model.compute_loss(batch["tokens"], batch["actions"], mask=mask,
+                                            generator=generator)
+        return loss, {"loss": loss, "dyn_loss": loss, **{f"dyn_{k}": v for k, v in aux.items()}}
 
 
 def frozen_param_mask(module: nn.Module, frozen_prefixes: Sequence[str]) -> Dict[str, bool]:

@@ -67,9 +67,10 @@ def cuda():
     return torch.device("cuda")
 
 
-# Every (B*H, N, D, causal) that the rollout, the Genie step and the
-# tokenizer step give K1 and K3 (`chip_smoke.PATH_CASES`, which the smoke run
-# holds to what the paths launch), then tile edges, ragged N and D = 128.
+# Every (B*H, N, D, causal) that the rollout, the Genie step, the tokenizer
+# step, the session and the staged training's paths give K1 and K3
+# (`chip_smoke.PATH_CASES`, which the smoke run holds to what the paths
+# launch), then tile edges, ragged N and D = 128.
 PATH_SHAPES = chip_smoke.FLASH_BF16_CASES
 
 

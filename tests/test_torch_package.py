@@ -34,6 +34,7 @@ def test_port_imports_without_jax():
         "import open_genie_tpu_torch.train.losses\n"
         "import open_genie_tpu_torch.train.loop\n"
         "import open_genie_tpu_torch.serve\n"
+        "import open_genie_tpu_torch.eval\n"
         "print('ok')\n"
     )
     proc = subprocess.run(
