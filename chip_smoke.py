@@ -108,15 +108,36 @@ Phases, in order (any failure raises and the exit code is non-zero):
      brought, as CUDA graphs beside SDPA's flash forward, aten's flash
      backward, the plain twins where cheap, and the bounds, with each
      path's launches of the shape. Phases 3 and 7 hold those shapes to the
-     plain twins (`FLASH_BF16_CASES`).
-Every line of a time or a memory size in phases 16 to 18 carries the
+     plain twins (`FLASH_BF16_CASES`);
+ 20. the trainer through its CLI (`open_genie_tpu_torch.cli.main`) on a copy
+     of `configs/tokenize.yaml` (the copies of phases 20 to 22 override only
+     where checkpoints and logs go, a log line per step, the run's length,
+     validation and checkpoint cadence, and what each phase names): 6 steps
+     with a validation and a save at step 3, then `--resume` to 8; finite
+     logged terms, the log lines' cadence, the step directories and
+     `best/`, phase 16's launches in every step, the VGG unchanged; ms per
+     step beside phase 16's bare step, save times and sizes, peak memory;
+ 21. `cli tokenize-data` on `configs/genie.yaml` (32 train and 8 validation
+     shards, one clip at a time: K2 once a clip), then `cli train dynamics`
+     on a copy of `configs/dynamics.yaml` reading them (warm-up 2, cosine
+     to 8): the logged lr equal to the schedule, the launches of every
+     step, and a run resumed at step 4 ending on an uninterrupted 8-step
+     run's parameters;
+ 22. `cli train tokenizer` on a copy of `configs/r05b_tokenizer.yaml`
+     (synthetic 4 x 8 x 64x64 clips, the bit-balance anneal from step 2
+     over 4, warm-up 2, cosine to 8): the scale each step's loss received,
+     the logged lr equal to the schedule, the EMA against its recursion
+     (and moved far beyond its f32 bound), no kernel launch (no attention,
+     no critic); the 5.6 GiB
+     checkpoint's size and write time.
+Every line of a time or a memory size in phases 16 to 22 carries the
 card's name and power limit. The line before the last is a JSON summary
 of the kernels (`launches` on one step or call of the newest path that
 runs each, and the counts by path; the variant, and the kernel's, the
 plain twin's and the library call's ms beside the bound at one shape of
 the paths, and for K1, K3 and K4 the shapes of phase 19), the session's
-times and each stage path's; the last line is `{"ok": true, "device":
-{...}}`. Without a CUDA device it exits 1 at once.
+times, each stage path's and the trainer's; the last line is `{"ok":
+true, "device": {...}}`. Without a CUDA device it exits 1 at once.
 """
 from __future__ import annotations
 
@@ -126,9 +147,11 @@ import functools
 import json
 import math
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -212,6 +235,18 @@ PATH_CASES = {
     # tokenizer attention, then the dynamics over the whole 3-frame buffer.
     "rollout_full": [(8, 256, 16, False), (2048, 1, 16, True), (24, 256, 64, False),
                      (2048, 3, 64, True)],
+    # `cli tokenize-data` on `configs/genie.yaml`, one 16-frame clip at a
+    # time: the tokenizer's spatial and temporal attention over 16x16
+    # tokens, the latent action's at 64x64 and at 32x32.
+    "tokenize_data": [(64, 256, 16, False), (1024, 16, 16, True), (64, 4096, 16, False),
+                      (16384, 16, 16, True), (64, 1024, 16, False), (4096, 16, 16, True)],
+    # `cli train dynamics` on `configs/dynamics.yaml`: the stage-3 step's
+    # shapes, and its validation's over a batch of the 8 validation shards.
+    "trainer_dynamics": [(4096, 256, 64, False), (65536, 16, 64, True),
+                         (1024, 256, 64, False), (16384, 16, 64, True)],
+    # `cli train tokenizer` on `configs/r05b_tokenizer.yaml`: the MAGVIT2
+    # stacks have no attention and the YAML turns the discriminator off.
+    "r05b_train": [],
 }
 # The paths this checkout added last (phases 16 to 18): their new shapes are
 # timed in phase 19.
@@ -219,9 +254,11 @@ STAGE_PATHS = ("stage1_train", "stage1_eval", "action_train", "tokenize_with_act
                "dynamics_train", "generate", "eval_dynamics", "rollout_full")
 # (N, C, d) of K2 on the paths: the rollout's prompt frame (256 tokens of a
 # 128-wide tokenizer), the Genie step's frozen tokenizer (4 x 16 frames of
-# 16x16 tokens, 64 wide), both with 10 bits, and the session's prompt (one
-# 8x8 token frame of the 512-wide MAGVIT2 encoder, 18 bits); all in bf16.
-LFQ_HEAD_PATH_SHAPES = [(256, 128, 10), (16384, 64, 10), (64, 512, 18)]
+# 16x16 tokens, 64 wide), both with 10 bits, the session's prompt (one 8x8
+# token frame of the 512-wide MAGVIT2 encoder, 18 bits), and `cli
+# tokenize-data`'s clip (16 frames of 16x16 tokens, 64 wide, 10 bits); all
+# in bf16.
+LFQ_HEAD_PATH_SHAPES = [(256, 128, 10), (16384, 64, 10), (64, 512, 18), (4096, 64, 10)]
 # (N, C, d, offset of x in elements) at which phase 4 and the card tests hold
 # K2 to its plain twin: the paths' calls, the tokenizer's 18-bit codebook, the
 # instance for any d up to 31, C no multiple of the 16-byte vector, one token
@@ -2089,6 +2126,453 @@ def phase_stage_shapes(dev, launches: dict) -> list:
     return rows
 
 
+# --------------------------------------------------------------------- #
+# Phases 20 to 22: the trainer through its CLI, on the repo's YAMLs
+# --------------------------------------------------------------------- #
+
+def yaml_copy(name: str, out_dir: Path, overrides: dict) -> str:
+    """`configs/<name>` with `overrides` merged into it (nested dicts merge
+    key by key), written to `out_dir`; returns the copy's path."""
+    import yaml
+
+    def merge(raw, over):
+        for k, v in over.items():
+            if isinstance(v, dict) and isinstance(raw.get(k), dict):
+                merge(raw[k], v)
+            else:
+                raw[k] = v
+        return raw
+
+    with open(HERE / "configs" / name) as f:
+        raw = yaml.safe_load(f)
+    path = out_dir / f"{Path(name).stem}_{len(list(out_dir.glob('*.yaml')))}.yaml"
+    with open(path, "w") as f:
+        yaml.safe_dump(merge(raw, copy.deepcopy(overrides)), f, sort_keys=False)
+    return str(path)
+
+
+def trainer_overrides(run_dir: Path, **trainer) -> dict:
+    """The `trainer:` keys a phase's copy overrides: where checkpoints and
+    logs go, a log line per step (the per-step checks read them), and the
+    phase's run length, validation and checkpoint cadence."""
+    return {"trainer": {"ckpt_dir": str(run_dir / "ckpt"), "log_dir": str(run_dir / "logs"),
+                        "log_every_n_steps": 1, **trainer}}
+
+
+def read_jsonl(log_dir) -> list:
+    with open(Path(log_dir) / "train_metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def dir_bytes(path) -> int:
+    return sum(p.stat().st_size for p in Path(path).rglob("*") if p.is_file())
+
+
+def _diff(now: dict, before: dict) -> dict:
+    return {k: now[k] - before.get(k, 0) for k in now}
+
+
+class TrainerWatch:
+    """While a trainer runs through the CLI: the kernels' counts start at 0,
+    and each call of its `MetricLogger.log` or `CheckpointWriter.save`
+    marks a point (after a device sync). The launches, their shapes and
+    the host time since the previous mark go to what ended there: a train
+    step at a train record (`steps`), a validation at a `val_` record
+    (`vals`), a save at its return (`saves`, with its seconds and bytes).
+    The first step of a run also carries the run's set-up."""
+
+    def __init__(self):
+        self.steps, self.vals, self.saves, self._run_starts = [], [], [], []
+
+    def _mark(self) -> tuple:
+        torch.cuda.synchronize()
+        now = (time.perf_counter(), _read_counts(), _read_shapes())
+        t, counts, shapes = self._last
+        self._last = now
+        return ((now[0] - t) * 1e3, _diff(now[1], counts),
+                {k: _diff(now[2][k], shapes[k]) for k in now[2]})
+
+    def __enter__(self):
+        from open_genie_tpu_torch.train.loop import CheckpointWriter
+        from open_genie_tpu_torch.train.metrics import MetricLogger
+
+        self._patched = [(MetricLogger, "log", MetricLogger.log),
+                         (CheckpointWriter, "save", CheckpointWriter.save)]
+        log, save = MetricLogger.log, CheckpointWriter.save
+        watch = self
+
+        def watched_log(logger, step, metrics):
+            ms, counts, shapes = watch._mark()
+            val = any(k.startswith("val_") for k in metrics)
+            (watch.vals if val else watch.steps).append(
+                {"step": step, "ms": ms, "launches": counts,
+                 "shapes": {k: {c: n for c, n in v.items() if n} for k, v in shapes.items()}})
+            return log(logger, step, metrics)
+
+        def watched_save(writer, state, step=None):
+            seconds = save(writer, state, step)
+            step = state.step if step is None else step
+            watch._mark()
+            watch.saves.append({"step": step, "seconds": seconds, "dir": writer.dir,
+                                "bytes": dir_bytes(Path(writer.dir) / str(step))})
+            return seconds
+
+        MetricLogger.log, CheckpointWriter.save = watched_log, watched_save
+        _reset_counts()
+        torch.cuda.synchronize()
+        self._last = (time.perf_counter(), _read_counts(), _read_shapes())
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self._patched:
+            setattr(cls, name, fn)
+        return False
+
+    def new_run(self) -> None:
+        """The next step carries a new run's set-up: not a steady step."""
+        self._run_starts.append(len(self.steps))
+
+    def steady_ms(self) -> list:
+        return [s["ms"] for i, s in enumerate(self.steps) if i not in self._run_starts]
+
+
+def assert_trainer_launches(label: str, path: str, steps: list, expect: dict) -> None:
+    """Every train step launched `expect`; over the whole watch (steps and
+    validations) every bf16 K1, K3 and K4 took the tensor cores, K1 at
+    exactly the shapes of `PATH_CASES[path]`."""
+    _assert_path_kernels(label, path)
+    for s in steps:
+        assert s["launches"] == expect, f"{label} step {s['step']}: {s['launches']} != {expect}"
+
+
+def assert_tokenize_launches(counts: dict, k2: dict, n_clips: int, per_clip: int) -> None:
+    """`cli tokenize-data` launched K2 once a clip at (4096, 64, 10) and K1
+    `per_clip` times a clip, on the tensor cores at the shapes of
+    `PATH_CASES["tokenize_data"]`."""
+    _assert_path_kernels("tokenize-data", "tokenize_data")
+    assert k2 == {(4096, 64, 10): n_clips}, f"K2 launched at {k2}"
+    assert counts == {"flash_attention_fwd": n_clips * per_clip, "lfq_head": n_clips,
+                      "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
+                      "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0}, counts
+
+
+def anneal_scales(steps: int, start: int, ramp: int, floor: float) -> list:
+    """The scale a linear anneal from 1 to `floor` over `ramp` steps from
+    `start` gives at steps 0 to `steps` - 1 (the trainer's
+    `bit_balance_scale`), in float64."""
+    return [min(max(1.0 - (s - start) / ramp, floor), 1.0) for s in range(steps)]
+
+
+def ema_recursion_error(trace: list, decay: float) -> tuple:
+    """The recursion `ema_k = decay * ema_(k-1) + (1 - decay) * p_k` in
+    float64 from the first update's parameters (the EMA starts as a copy of
+    them), over `trace` (per update: `before`, the parameters before it,
+    `after` and `ema` after it, each `{name: tensor}`): `(largest
+    |difference| from the EMA each update left, in units of its value's
+    bound, the recursion's last EMA, the bound of each value, the median
+    motion of that EMA from the first update's parameters in units of the
+    bound)`. Each f32 update rounds twice, and `decay` and `1 - decay` once
+    each, by at most 2^-24 of the value's largest magnitude in the run: the
+    bound is 4 * 2^-24 * that magnitude per update. The check has teeth
+    where the EMA moves far beyond it: an update skipped or taken from the
+    parameters before it, or an EMA left at its start, is then off by
+    about that motion."""
+    names = list(trace[0]["before"])
+    mag = {n: torch.stack([trace[0]["before"][n].double().abs()]
+                          + [t[k][n].double().abs() for t in trace for k in ("after", "ema")]
+                          ).amax(0) for n in names}
+    bound = {n: (4 * 2 ** -24 * len(trace) * mag[n]).clamp_min(1e-30) for n in names}
+    ema = {n: trace[0]["before"][n].double() for n in names}
+    err = 0.0
+    for t in trace:
+        ema = {n: decay * ema[n] + (1 - decay) * t["after"][n].double() for n in names}
+        err = max(err, max(((ema[n] - t["ema"][n].double()).abs() / bound[n]).max().item()
+                           for n in names))
+    moved = torch.cat([((ema[n] - trace[0]["before"][n].double()).abs() / bound[n]).flatten()
+                       for n in names]).median().item()
+    return err, ema, bound, moved
+
+
+def _finite_records(label: str, records: list) -> None:
+    bad = [(r["step"], k) for r in records for k, v in r.items()
+           if k != "time" and not math.isfinite(v)]
+    assert not bad, f"{label}: non-finite logged values {bad}"
+
+
+def phase_trainer_tokenizer(dev, smi: str, bare_ms: float, work: Path) -> dict:
+    """`cli train tokenizer --config configs/tokenize.yaml` at full width
+    (synthetic 8 x 16 x 64x64 clips, bf16 on f32 weights, the VGG frozen):
+    6 steps with a validation and a save at step 3, then `--resume` to
+    step 8. Finite logged terms, the cadence of the log lines, the step
+    directories `max_to_keep` leaves and `best/`, the launches of every
+    step (phase 16's), the VGG of the last checkpoint the one the seed drew;
+    the trainer's ms per step beside phase 16's bare step, save times and
+    sizes, peak memory."""
+    from open_genie_tpu_torch.cli import main as cli
+    from open_genie_tpu_torch.models.configs import tokenize_yaml_config
+    from open_genie_tpu_torch.train.config import load_config
+    from open_genie_tpu_torch.train.losses import TokenizerTrainModule
+    from open_genie_tpu_torch.train.loop import all_steps, load_checkpoint
+    from open_genie_tpu_torch.train.trainer import build_tokenizer_module, init_module
+
+    run = work / "tokenizer"
+    cfg = yaml_copy("tokenize.yaml", work, trainer_overrides(
+        run, max_steps=6, val_check_interval=3, limit_val_batches=1, ckpt_every_n_steps=3))
+    with torch.device("meta"):
+        meta = TokenizerTrainModule(**tokenize_yaml_config())
+    n_tok, n_disc = _attn_count(meta.model), _attn_count(meta.gan_crit)
+    expect = {"flash_attention_fwd": 2 * n_tok + 3 * n_disc,
+              "flash_attention_bwd_dkv": n_tok + 3 * n_disc,
+              "flash_attention_bwd_dq": n_tok + 3 * n_disc, "lfq_head": 0,
+              "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0}
+    torch.cuda.reset_peak_memory_stats()
+    with TrainerWatch() as watch:
+        watch.new_run()
+        cli(["train", "tokenizer", "--config", cfg])
+        watch.new_run()
+        state = cli(["train", "tokenizer", "--config", cfg, "--resume", "--max-steps", "8"])
+        assert_trainer_launches("trainer tokenizer", "stage1_train", watch.steps, expect)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    records = read_jsonl(run / "logs")
+    _finite_records("trainer tokenizer", records)
+    train = [r["step"] for r in records if "loss" in r]
+    val = [r["step"] for r in records if "val_loss" in r]
+    assert train == list(range(1, 9)) and val == [3, 6], (train, val)
+    assert all_steps(str(run / "ckpt")) == [6, 8], all_steps(str(run / "ckpt"))
+    best = all_steps(str(run / "ckpt" / "best"))
+    assert len(best) == 1 and best[0] in (3, 6), best
+    assert state.step == 8
+    ckpt, _ = load_checkpoint(str(run / "ckpt"))
+    mcfg = load_config(cfg, "tokenizer")
+    fresh = init_module(build_tokenizer_module(mcfg.model), mcfg.trainer.seed, "cpu")
+    vgg = {n: p for n, p in fresh.state_dict().items() if n.startswith("perc_crit.")}
+    assert vgg and all(torch.equal(ckpt["params"][n], p) for n, p in vgg.items())
+    steady = watch.steady_ms()
+    ms = statistics.median(steady)
+    saves = [(s["step"], round(s["seconds"], 3), round(s["bytes"] / 2 ** 20, 1))
+             for s in watch.saves]
+    print(f"[trainer tokenizer] {smi}: launches per step {watch.steps[-1]['launches']}; logged "
+          f"steps {train}, validations {val}; step dirs {all_steps(str(run / 'ckpt'))}, "
+          f"best/{best[0]}; VGG of the last checkpoint equal to the seed's")
+    print(f"[trainer tokenizer] {smi}: {ms:.1f} ms per step through the CLI (median of "
+          f"{len(steady)} steps, min {min(steady):.1f}, max {max(steady):.1f}) against phase "
+          f"16's bare step {bare_ms:.1f} ms: {ms - bare_ms:+.1f} ms of loader and loop; "
+          f"saves (step, s, MiB) {saves}; validations "
+          f"{[round(v['ms'], 1) for v in watch.vals]} ms; peak memory {peak:.2f} GiB")
+    return {"ms": ms, "bare_ms": bare_ms, "peak_gib": peak, "saves": watch.saves,
+            "launches": watch.steps[-1]["launches"], "shapes": watch.steps[-1]["shapes"],
+            "val_ms": [v["ms"] for v in watch.vals]}
+
+
+def phase_trainer_dynamics(dev, smi: str, work: Path) -> dict:
+    """`cli tokenize-data` on `configs/genie.yaml` (random weights from the
+    seed): 32 train and 8 validation shards of 16 frames, one clip at a
+    time (K2 once a clip at (4096, 64, 10)); then `cli train dynamics
+    --config configs/dynamics.yaml` at full width (6 x 512, batch 32) on
+    them, warm-up 2 and cosine to step 8: the lr each step logged is the
+    schedule's, the launches of every step (phase 17's), and a run resumed
+    at step 4 ends on the parameters of an uninterrupted 8-step run
+    (cuDNN deterministic, TF32 off)."""
+    from open_genie_tpu_torch.cli import main as cli
+    from open_genie_tpu_torch.data.tokens import TokenClipDataset
+    from open_genie_tpu_torch.models.configs import dynamics_yaml_config, genie_train_config
+    from open_genie_tpu_torch.models.genie import Genie
+    from open_genie_tpu_torch.ops.kernels.lfq_head import lfq_head
+    from open_genie_tpu_torch.train.config import load_config
+    from open_genie_tpu_torch.train.loop import load_checkpoint
+    from open_genie_tpu_torch.train.losses import DynamicsTrainModule
+
+    tokens = work / "tokens"
+    with torch.device("meta"):
+        genie = Genie(**genie_train_config())
+    per_clip = sum(_attn_count(layer) for layer in genie.tokenizer.enc_layers) + _attn_count(
+        genie.latent_action)
+    clips = {"train": 32, "val": 8}
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    for split, n in clips.items():
+        assert cli(["tokenize-data", "--config", yaml_copy("genie.yaml", work, {}),
+                    "--allow-random-params", "--out", str(tokens), "--splits", split,
+                    "--limit", str(n)]) == {split: n}
+    torch.cuda.synchronize()
+    tok_s = time.perf_counter() - t0
+    counts, n_clips = _read_counts(), sum(clips.values())
+    k2 = dict(lfq_head.launches_by_shape)
+    assert_tokenize_launches(counts, k2, n_clips, per_clip)
+    shard = TokenClipDataset(str(tokens))[0]
+    assert shard["tokens"].shape == (16, 16, 16) and shard["actions"].shape == (16,)
+    print(f"[tokenize-data] {smi}: {n_clips} clips in {tok_s:.2f} s ({tok_s / n_clips * 1e3:.1f} "
+          f"ms a clip with the model's set-up), launches {counts}, K2 by (N, C, d) {k2}, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    tokenize = {"launches": {k: v // n_clips for k, v in counts.items()},
+                "ms_per_clip": tok_s / n_clips * 1e3}
+
+    det = (torch.backends.cudnn.deterministic, torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    over = {"data": {"root": str(tokens)}, "model": {"optimizer": {"warmup_steps": 2,
+                                                                  "decay_steps": 8}}}
+    runs = {}
+    with torch.device("meta"):
+        n_dyn = _attn_count(DynamicsTrainModule(**dynamics_yaml_config()))
+    expect = {"flash_attention_fwd": n_dyn, "flash_attention_bwd_dkv": n_dyn,
+              "flash_attention_bwd_dq": n_dyn, "lfq_head": 0, "lfq_entropy_fwd": 0,
+              "lfq_entropy_bwd": 0}
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with TrainerWatch() as watch:
+            for name in ("whole", "resumed"):
+                runs[name] = work / f"dynamics_{name}"
+                cfg = yaml_copy("dynamics.yaml", work, {**over, **trainer_overrides(
+                    runs[name], max_steps=8, val_check_interval=4, limit_val_batches=1,
+                    ckpt_every_n_steps=4)})
+                watch.new_run()
+                if name == "whole":
+                    cli(["train", "dynamics", "--config", cfg])
+                else:
+                    cli(["train", "dynamics", "--config", cfg, "--max-steps", "4"])
+                    watch.new_run()
+                    cli(["train", "dynamics", "--config", cfg, "--resume"])
+            assert_trainer_launches("trainer dynamics", "trainer_dynamics", watch.steps, expect)
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = det
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    sched = load_config(cfg, "dynamics").model.optimizer.schedule()
+    for name, run in runs.items():
+        records = read_jsonl(run / "logs")
+        _finite_records(f"trainer dynamics {name}", records)
+        lrs = [(r["step"], r["lr"]) for r in records if "loss" in r]
+        assert [s for s, _ in lrs] == list(range(1, 9)), lrs
+        assert all(lr == sched(s - 1) for s, lr in lrs), (lrs, [sched(s) for s in range(8)])
+    whole = load_checkpoint(str(runs["whole"] / "ckpt"), 8)[0]
+    resumed = load_checkpoint(str(runs["resumed"] / "ckpt"), 8)[0]
+    diff = max((whole["params"][k].float() - resumed["params"][k].float()).abs().max().item()
+               for k in whole["params"])
+    scale = max(p.float().abs().max().item() for p in whole["params"].values())
+    ema_none = whole["train_state"]["optimizer"]["ema"] is None
+    steady = watch.steady_ms()
+    ms = statistics.median(steady)
+    saves = [(s["step"], round(s["seconds"], 3), round(s["bytes"] / 2 ** 20, 1))
+             for s in watch.saves]
+    print(f"[trainer dynamics] {smi}: lr of steps 1-8 {[f'{sched(s):.3g}' for s in range(8)]} "
+          f"as logged; launches per step {watch.steps[-1]['launches']}; resumed at step 4 "
+          f"against uninterrupted, step 8: largest |parameter difference| {diff:.3g} (largest "
+          f"|parameter| {scale:.3g}); EMA {'off' if ema_none else 'on'}")
+    print(f"[trainer dynamics] {smi}: {ms:.1f} ms per step through the CLI (median of "
+          f"{len(steady)} steps, min {min(steady):.1f}, max {max(steady):.1f}); saves (step, s, "
+          f"MiB) {saves}; peak memory {peak:.2f} GiB")
+    assert diff <= 1e-6 * scale, f"the resumed run ends {diff} off the uninterrupted one"
+    return {"ms": ms, "peak_gib": peak, "saves": watch.saves, "resume_max_diff": diff,
+            "launches": watch.steps[-1]["launches"], "shapes": watch.steps[-1]["shapes"],
+            "tokenize_data": tokenize}
+
+
+def phase_trainer_r05b(dev, smi: str, work: Path) -> dict:
+    """`cli train tokenizer --config configs/r05b_tokenizer.yaml` at full
+    width (MAGVIT2 d = 18, the streaming decoder, EMA 0.999, cosine with
+    `end_lr_scale` over warm-up 2 and decay 8, the bit-balance anneal from
+    step 2 over 4 steps to its floor 0.05) on synthetic 4 x 8 x 64x64
+    clips: 4 steps, then `--resume` to 8. The `bit_balance_scale` each
+    step's loss received, the logged lr against the schedule, the EMA of
+    the checkpoint against the recursion over the steps' parameters (a few
+    tensors, recorded after each update; it must move far beyond its f32
+    bound for that to catch a fault), no launch of K5/K6 (the entropy
+    weight is 0) nor of K1, K3, K4 (no attention, no discriminator); the
+    checkpoint's size and write time."""
+    from open_genie_tpu_torch.cli import main as cli
+    from open_genie_tpu_torch.train.config import load_config
+    from open_genie_tpu_torch.train.loop import AdamW, load_checkpoint
+    from open_genie_tpu_torch.train.losses import TokenizerTrainModule
+
+    run = work / "r05b"
+    over = {"data": {"source": "synthetic", "root": "", "num_frames": 8, "batch_size": 4,
+                     "height": 64, "width": 64},
+            "model": {"lfq_bit_balance_anneal_start": 2, "lfq_bit_balance_anneal_steps": 4,
+                      "optimizer": {"warmup_steps": 2, "decay_steps": 8}}}
+    cfg = yaml_copy("r05b_tokenizer.yaml", work, {**over, **trainer_overrides(
+        run, max_steps=8, ckpt_every_n_steps=4)})
+    mcfg = load_config(cfg, "tokenizer").model
+    decay = mcfg.optimizer.ema_decay
+    scales, trace = [], []
+    forward, opt_step = TokenizerTrainModule.forward, AdamW.step
+
+    @functools.wraps(forward)  # its signature: the step passes it the generator
+    def watched_forward(module, video, *args, **kwargs):
+        if kwargs.get("train", True):
+            scales.append(kwargs.get("bit_balance_scale", 1.0))
+        return forward(module, video, *args, **kwargs)
+
+    def watched_step(opt):
+        # A few parameters (their first 4096 values) and their EMA after
+        # each update; the update's parameters before it.
+        names = [n for n, p in opt.named if p.dim() > 1][:2] + [opt.named[-1][0]]
+        pick = lambda t: t.detach().flatten()[:4096].double().cpu()  # noqa: E731
+        params = dict(opt.named)
+        before = {n: pick(params[n]) for n in names}
+        ema_before = {n: pick(opt.ema[n]) for n in names}
+        norm = opt_step(opt)
+        trace.append({"before": before, "ema_before": ema_before,
+                      "after": {n: pick(params[n]) for n in names},
+                      "ema": {n: pick(opt.ema[n]) for n in names}})
+        return norm
+
+    TokenizerTrainModule.forward, AdamW.step = watched_forward, watched_step
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with TrainerWatch() as watch:
+            watch.new_run()
+            cli(["train", "tokenizer", "--config", cfg, "--max-steps", "4"])
+            watch.new_run()
+            state = cli(["train", "tokenizer", "--config", cfg, "--resume"])
+            assert_trainer_launches("trainer r05b", "r05b_train", watch.steps, {
+                "flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0,
+                "flash_attention_bwd_dq": 0, "lfq_head": 0, "lfq_entropy_fwd": 0,
+                "lfq_entropy_bwd": 0})
+    finally:
+        TokenizerTrainModule.forward, AdamW.step = forward, opt_step
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    records = read_jsonl(run / "logs")
+    _finite_records("trainer r05b", records)
+    floor = mcfg.lfq_bit_balance_anneal_floor
+    want = anneal_scales(8, mcfg.lfq_bit_balance_anneal_start,
+                         mcfg.lfq_bit_balance_anneal_steps, floor)
+    assert scales == want, f"bit_balance_scale {scales}, the anneal gives {want}"
+    assert floor == 0.05 and scales[-1] == floor and scales[-2] == floor
+    sched = mcfg.optimizer.schedule()
+    lrs = [(r["step"], r["lr"]) for r in records if "loss" in r]
+    assert [s for s, _ in lrs] == list(range(1, 9)), lrs
+    assert all(lr == sched(s - 1) for s, lr in lrs), (lrs, [sched(s) for s in range(8)])
+    err, ema, bound, moved = ema_recursion_error(trace, decay)
+    ckpt, at = load_checkpoint(str(run / "ckpt"))
+    saved = ckpt["train_state"]["optimizer"]["ema"]
+    ck_err = max(((saved[n].flatten()[:4096].double() - ema[n]).abs() / bound[n]).max().item()
+                 for n in ema)
+    size = dir_bytes(run / "ckpt" / str(at))
+    n_params = sum(v.numel() for v in ckpt["params"].values())
+    saves = [(s["step"], round(s["seconds"], 3), round(s["bytes"] / 2 ** 30, 3))
+             for s in watch.saves]
+    steady = watch.steady_ms()
+    ms = statistics.median(steady)
+    print(f"[trainer r05b] bit_balance_scale of steps 0-7 {scales}; the EMA (decay {decay}) "
+          f"after each of {len(trace)} updates against its float64 recursion: largest "
+          f"|difference| {err:.3g} of its f32 bound, the checkpoint's (step {at}) "
+          f"{ck_err:.3g}; the EMA moved a median {moved:.3g} bounds from the first update's "
+          f"parameters; no K1-K6 launch")
+    print(f"[trainer r05b] {smi}: {ms:.1f} ms per step through the CLI (median of "
+          f"{len(steady)} steps, min {min(steady):.1f}, max {max(steady):.1f}); checkpoint "
+          f"{size / 2 ** 30:.3f} GiB for {n_params / 1e6:.1f}M parameters (saves (step, s, GiB) "
+          f"{saves}); peak memory {peak:.2f} GiB")
+    assert state.step == 8 and at == 8 and len(trace) == 8
+    assert err <= 1 and ck_err <= 1, f"EMA off its recursion by {err}, {ck_err} bounds"
+    assert moved > 10, f"the EMA moved {moved} bounds: too little for the check to catch a fault"
+    return {"ms": ms, "peak_gib": peak, "saves": watch.saves, "ema_err": err,
+            "ema_moved": moved,
+            "checkpoint_gib": size / 2 ** 30, "launches": watch.steps[-1]["launches"]}
+
+
 def main() -> int:
     global SEED
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2126,16 +2610,31 @@ def main() -> int:
              "dynamics_train": stage23["dynamics"], "generate": stage23["generate"],
              "eval_dynamics": stage23["eval_dynamics"], "rollout_full": full}
     shape_rows = phase_stage_shapes(dev, {path: stage[path]["shapes"] for path in STAGE_PATHS})
+    (HERE / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_trainer_", dir=HERE / "build"))
+    try:
+        trainer = {"tokenizer": phase_trainer_tokenizer(dev, device["smi"], stage1["ms"], work),
+                   "dynamics": phase_trainer_dynamics(dev, device["smi"], work),
+                   "r05b": phase_trainer_r05b(dev, device["smi"], work)}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     kernels = [k1, k2, k3, k4, k5, k6]
     for k in kernels:
         name = k["name"]
-        by_path = {**{path: stage[path]["launches"][name] for path in STAGE_PATHS},
+        # The trainer's paths first: one step of `cli train tokenizer` on
+        # tokenize.yaml, one clip of `cli tokenize-data`, one step of `cli
+        # train dynamics` and of `cli train tokenizer` on r05b.
+        by_path = {"trainer": trainer["tokenizer"]["launches"][name],
+                   "tokenize_data": trainer["dynamics"]["tokenize_data"]["launches"][name],
+                   "trainer_dynamics": trainer["dynamics"]["launches"][name],
+                   "trainer_r05b": trainer["r05b"]["launches"][name],
+                   **{path: stage[path]["launches"][name] for path in STAGE_PATHS},
                    "serve": serve["launches"][name], "tokenizer_train": tok_train[name],
                    "train_step": train.get(name, 0), "rollout": rollout.get(name, 0)}
         # The newest path that runs the kernel, in the order above: one
-        # stage-1 training step (tokenize.yaml) for K1, K3 and K4, the
-        # stage-2 tokenize_with_actions of 32 clips for K2, one MAGVIT2
-        # tokenizer training step for K5 and K6.
+        # trainer step on tokenize.yaml for K1, K3 and K4, one clip of
+        # tokenize-data for K2, one MAGVIT2 tokenizer training step for K5
+        # and K6.
         k["launches"] = next((c for c in by_path.values() if c > 0), 0)
         k["launches_by_path"] = by_path
         k["serve_launches"] = {"per_reset": serve["per_reset"][name],
@@ -2155,7 +2654,11 @@ def main() -> int:
                      if key in ("ms", "warmup_ms", "peak_gib", "frames_per_s", "scores",
                                 "equal_to_cached", "cached_ms")}
               for path in STAGE_PATHS}
-    print(json.dumps({"kernels": kernels, "serve": serve["times"], "stages": stages}))
+    trainer_times = {
+        kind: {key: v for key, v in out.items() if key not in ("launches", "shapes")}
+        for kind, out in trainer.items()}
+    print(json.dumps({"kernels": kernels, "serve": serve["times"], "stages": stages,
+                      "trainer": trainer_times}))
     print(json.dumps({"ok": True, "device": {k: device[k] for k in ("platform", "kind", "count")}}))
     return 0
 

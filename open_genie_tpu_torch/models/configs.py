@@ -1,6 +1,8 @@
 """Model configurations of the port."""
 from __future__ import annotations
 
+from pathlib import Path
+
 from open_genie_tpu_torch.models.blueprints import (
     LATENT_ACT_DEC,
     LATENT_ACT_ENC,
@@ -8,6 +10,8 @@ from open_genie_tpu_torch.models.blueprints import (
     MAGVIT2_ENC_DESC,
     MAGVIT2_STREAM_DEC_DESC,
 )
+
+CONFIGS = Path(__file__).resolve().parents[2] / "configs"  # the repo's YAMLs
 
 
 def genie_compact_config() -> dict:
@@ -243,68 +247,29 @@ def tokenizer_compact_train_config() -> dict:
     )
 
 
+def _repo_config(name: str, kind: str):
+    """`train.config.load_config` of the repo's `configs/<name>`."""
+    from open_genie_tpu_torch.train.config import load_config
+
+    return load_config(str(CONFIGS / name), kind)
+
+
 def tokenize_yaml_config() -> dict:
     """`TokenizerTrainModule` kwargs of the repo's stage-1 training config
-    `configs/tokenize.yaml` (its `model:` block, pinned equal by the
-    tests): a space-downsampling stem (64x64 frames to 32x32, 64 wide), 8
-    space-time blocks of 8 heads x 64 each way, so the 64-wide encoder
-    output enters the 10-bit codebook through the LFQ's `proj_inp` (and the
-    decoder takes it back through `proj_out`); LFQ weights 0.25 / 0.01 /
-    1.0; a 64-wide frame discriminator with spatial attention (4 heads x
-    32) over 4 frames per video; the VGG16 perceptual loss."""
-    st = ("space-time_attn", {"n_rep": 8, "n_head": 8, "d_head": 64, "d_inp": 64, "d_out": 64})
-    return dict(
-        tokenizer=dict(
-            enc_desc=(
-                ("spacetime_downsample", {
-                    "in_channels": 3, "kernel_size": 3, "out_channels": 64,
-                    "time_factor": 1, "space_factor": 2,
-                }),
-                st,
-            ),
-            dec_desc=(
-                st,
-                ("depth2spacetime_upsample", {
-                    "in_channels": 64, "kernel_size": 3, "out_channels": 3,
-                    "time_factor": 1, "space_factor": 2,
-                }),
-            ),
-            d_codebook=10,
-            n_codebook=1,
-            lfq_bias=True,
-            lfq_frac_sample=1,
-            lfq_commit_weight=0.25,
-            lfq_entropy_weight=0.01,
-            lfq_diversity_weight=1.0,
-            lfq_bit_balance_weight=0.0,
-            remat=True,
-        ),
-        disc_kwargs=dict(
-            inp_size=(64, 64), model_dim=64, dim_mults=(1, 2, 4), down_step=(None, 2, 2),
-            inp_channels=3, kernel_size=3, num_groups=8, use_blur=True, use_attn=True,
-            num_heads=4, dim_head=32,
-        ),
-        perceptual_model="vgg16",
-        perc_feat_layers=("features.6", "features.13", "features.18", "features.25"),
-        gan_discriminate="frames",
-        gan_frames_per_batch=4,
-        gan_loss_weight=1.0,
-        perc_loss_weight=1.0,
-        quant_loss_weight=1.0,
-    )
+    `configs/tokenize.yaml`, as `train tokenizer` builds them: a
+    space-downsampling stem (64x64 frames to 32x32, 64 wide), 8 space-time
+    blocks of 8 heads x 64 each way, so the 64-wide encoder output enters
+    the 10-bit codebook through the LFQ's `proj_inp` (and the decoder takes
+    it back through `proj_out`); LFQ weights 0.25 / 0.01 / 1.0; a 64-wide
+    frame discriminator with spatial attention (4 heads x 32) over 4 frames
+    per video; the VGG16 perceptual loss."""
+    return _repo_config("tokenize.yaml", "tokenizer").model.module_kwargs()
 
 
 def dynamics_yaml_config() -> dict:
     """`DynamicsTrainModule` kwargs of the repo's stage-3 training config
-    `configs/dynamics.yaml` (pinned equal by the tests): the 6-block,
+    `configs/dynamics.yaml`, as `train dynamics` builds them: the 6-block,
     512-wide space-time trunk of 8 heads x 64 over token grids of a 10-bit
     tokenizer (`tok_vocab` 1024) with 8-bit latent actions (`act_vocab`
     256)."""
-    return dict(
-        dynamics=dict(
-            desc=(("space-time_attn", {"n_rep": 6, "n_embd": 512, "n_head": 8, "d_head": 64}),),
-            embed_dim=512,
-            tok_vocab=1024,
-            act_vocab=256,
-        ),
-    )
+    return {"dynamics": _repo_config("dynamics.yaml", "dynamics").model.dynamics_kwargs()}

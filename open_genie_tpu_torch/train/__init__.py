@@ -1,1 +1,2 @@
-"""Training of the port: the objective modules and the optimizer step."""
+"""Training of the port: the objective modules, the train step and its
+state, checkpoints, the YAML config and the trainer loop."""

@@ -35,6 +35,8 @@ def test_port_imports_without_jax():
         "import open_genie_tpu_torch.train.loop\n"
         "import open_genie_tpu_torch.serve\n"
         "import open_genie_tpu_torch.eval\n"
+        "import open_genie_tpu_torch.train.trainer\n"
+        "import open_genie_tpu_torch.cli\n"
         "print('ok')\n"
     )
     proc = subprocess.run(

@@ -3,6 +3,8 @@ to (`chip_smoke.bf16_excess`): it passes an output that differs from the f32
 result only by a sound bf16 kernel's rounding, and fails one that skips a
 64-row tile, at the sequence lengths of the paths. Plain PyTorch on the CPU.
 """
+import math
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -63,3 +65,101 @@ def test_bf16_limit_passes_rounding_and_fails_a_skipped_query_tile(n, d):
         _, dk_s, dv_s = flash_attention_bwd_plain(q, k, v, o, lse, skipped, scale)
         assert chip_smoke.bf16_excess(dk_s.bfloat16(), dk) > 10
         assert chip_smoke.bf16_excess(dv_s.bfloat16(), dv) > 10
+
+
+# --------------------------------------------------------------------- #
+# The trainer phases' checks (20 to 22)
+# --------------------------------------------------------------------- #
+
+def test_anneal_scales_follow_the_trainer_schedule():
+    """`anneal_scales` is the trainer's `bit_balance_scale` step by step:
+    1 until the start, linear over the ramp, then held at the floor."""
+    from open_genie_tpu_torch.train.trainer import _entropy_anneal_kwargs
+
+    class Cfg:
+        lfq_bit_balance_anneal_start, lfq_bit_balance_anneal_steps = 2, 4
+        lfq_bit_balance_anneal_floor = 0.05
+
+    schedule = _entropy_anneal_kwargs(Cfg())["bit_balance_scale"]
+    want = chip_smoke.anneal_scales(9, 2, 4, 0.05)
+    assert want == [schedule(s) for s in range(9)]
+    assert want == [1.0, 1.0, 1.0, 0.75, 0.5, 0.25, 0.05, 0.05, 0.05]
+
+
+def _ema_trace(decay, steps, skip_at=None, walk=1e-1, fault=None):
+    """Per update of a random walk of parameters: the parameters before and
+    after and the EMA after, the EMA updated in f32 as `loop.AdamW` does.
+    `fault`: "frozen" leaves the EMA at its start, "before" takes it from
+    the parameters before the update."""
+    g = torch.Generator().manual_seed(0)
+    p = torch.randn(64, generator=g)
+    ema, trace = p.clone(), []
+    for k in range(steps):
+        before = p.clone()
+        p = p + walk * torch.randn(64, generator=g)
+        if k != skip_at and fault != "frozen":  # an update that leaves the EMA behind
+            ema.mul_(decay).add_(before if fault == "before" else p, alpha=1.0 - decay)
+        trace.append({"before": {"w": before}, "after": {"w": p.clone()},
+                      "ema": {"w": ema.clone()}})
+    return trace
+
+
+def _adam_like_trace(fault=None):
+    """Phase 22's motion: 8 updates of parameters of magnitude ~0.05, each
+    value stepping in a fixed direction by the lr of warm-up 2 then cosine
+    to 8 at 5e-4 (Adam's first steps move each value by about the lr)."""
+    g = torch.Generator().manual_seed(1)
+    p = 0.05 * torch.randn(4096, generator=g)
+    direction = torch.randn(4096, generator=g).sign()
+    lrs = [5e-4 * min(s / 2, 1.0) * (0.5 + 0.5 * math.cos(math.pi * max(s - 2, 0) / 6))
+           for s in range(8)]
+    ema, trace = p.clone(), []
+    for lr in lrs:
+        before = p.clone()
+        p = p + lr * direction
+        if fault != "frozen":
+            ema.mul_(0.999).add_(before if fault == "before" else p, alpha=1.0 - 0.999)
+        trace.append({"before": {"w": before}, "after": {"w": p.clone()},
+                      "ema": {"w": ema.clone()}})
+    return trace
+
+
+def test_ema_recursion_check_passes_f32_and_catches_a_wrong_update():
+    err, ema, _, _ = chip_smoke.ema_recursion_error(_ema_trace(0.999, 8), 0.999)
+    assert err <= 1 and ema["w"].dtype == torch.float64
+    bad, _, _, _ = chip_smoke.ema_recursion_error(_ema_trace(0.999, 8, skip_at=5), 0.999)
+    assert bad > 1
+    wrong_decay, _, _, _ = chip_smoke.ema_recursion_error(_ema_trace(0.99, 8), 0.999)
+    assert wrong_decay > 1
+    for fault in ("frozen", "before"):
+        bad, _, _, _ = chip_smoke.ema_recursion_error(_ema_trace(0.999, 8, fault=fault), 0.999)
+        assert bad > 1, fault
+
+
+def test_ema_recursion_check_has_teeth_at_phase_22s_motion():
+    """At the motion of phase 22's 8 updates the EMA moves far beyond its
+    f32 bound, and an EMA left at its start or taken before the update
+    fails."""
+    err, _, bound, moved = chip_smoke.ema_recursion_error(_adam_like_trace(), 0.999)
+    assert err <= 1 and moved > 10
+    for fault in ("frozen", "before"):
+        bad, _, _, _ = chip_smoke.ema_recursion_error(_adam_like_trace(fault), 0.999)
+        assert bad > 1, fault
+
+
+def test_yaml_copy_overrides_only_what_it_names(tmp_path):
+    import yaml
+
+    path = chip_smoke.yaml_copy("dynamics.yaml", tmp_path, {
+        "data": {"root": "shards"}, "model": {"optimizer": {"warmup_steps": 2}},
+        **chip_smoke.trainer_overrides(tmp_path / "run", max_steps=8)})
+    with open(path) as f:
+        got = yaml.safe_load(f)
+    with open(chip_smoke.HERE / "configs" / "dynamics.yaml") as f:
+        ref = yaml.safe_load(f)
+    assert got["data"] == {**ref["data"], "root": "shards"}
+    assert got["model"]["optimizer"] == {**ref["model"]["optimizer"], "warmup_steps": 2}
+    assert got["model"]["dynamics"] == ref["model"]["dynamics"]
+    assert got["trainer"] == {**ref["trainer"], "max_steps": 8, "log_every_n_steps": 1,
+                              "ckpt_dir": str(tmp_path / "run" / "ckpt"),
+                              "log_dir": str(tmp_path / "run" / "logs")}
