@@ -129,14 +129,33 @@ Phases, in order (any failure raises and the exit code is non-zero):
      the logged lr equal to the schedule, the EMA against its recursion
      (and moved far beyond its f32 bound), no kernel launch (no attention,
      no critic); the 5.6 GiB
-     checkpoint's size and write time.
-Every line of a time or a memory size in phases 16 to 22 carries the
+     checkpoint's size and write time;
+ 23. the native `.gvid` loader (`data/native.py`, its library built from
+     `native/gvid_loader.cpp` into `build/gvid/`): GVID_CLIPS synthetic
+     clips at tokenize.yaml's 16 x 64x64, the first epoch against the clips
+     and starts it documents, batches per second beside `BatchLoader`; then
+     `cli train tokenizer` on a tokenize.yaml copy reading the file, 4 steps
+     and `--resume` to 6: each step trained on an uninterrupted run's batch,
+     phase 16's launches per step;
+ 24. `cli eval tokenizer` on phase 20's checkpoint and with `--ema` on phase
+     22's: the JAX package's keys, finite values, f32 K1 at the stage-1
+     evaluation's shapes held to its twin, ms per batch;
+ 25. `cli train genie` (3 steps, EMA 0.999) on a genie.yaml copy, then the
+     functions behind `generate` and `play` (the card has no OpenCV to write
+     an mp4): `generate --ema --top-k 1` in f32 beside the same call on the
+     CPU (the share of equal tokens printed; the compact model's equal),
+     `--actions-from-data`, `play` past `--max-frames` (a rebase), launches
+     per frame, ms per frame, play's p50/p95;
+ 26. `cli eval genie --controllability-frames 4` on phase 25's checkpoint and
+     `cli eval dynamics` on phase 21's: the JAX package's keys, finite
+     values, f32 K1 held to its twin at its shapes, ms.
+Every line of a time or a memory size in phases 16 to 26 carries the
 card's name and power limit. The line before the last is a JSON summary
 of the kernels (`launches` on one step or call of the newest path that
 runs each, and the counts by path; the variant, and the kernel's, the
 plain twin's and the library call's ms beside the bound at one shape of
 the paths, and for K1, K3 and K4 the shapes of phase 19), the session's
-times, each stage path's and the trainer's; the last line is `{"ok":
+times, each stage path's, the trainer's and the CLI's; the last line is `{"ok":
 true, "device": {...}}`. Without a CUDA device it exits 1 at once.
 """
 from __future__ import annotations
@@ -144,8 +163,10 @@ from __future__ import annotations
 import argparse
 import copy
 import functools
+import itertools
 import json
 import math
+import os
 import re
 import shutil
 import statistics
@@ -155,6 +176,7 @@ import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 HERE = Path(__file__).resolve().parent
@@ -247,6 +269,12 @@ PATH_CASES = {
     # `cli train tokenizer` on `configs/r05b_tokenizer.yaml`: the MAGVIT2
     # stacks have no attention and the YAML turns the discriminator off.
     "r05b_train": [],
+    # `cli train tokenizer` on tokenize.yaml reading the .gvid file of
+    # phase 23 (the stage-1 step's shapes), and `cli eval tokenizer` on its
+    # checkpoint (in f32, on the CUDA cores, at the stage-1 evaluation's).
+    "gvid_train": [(1024, 1024, 64, False), (65536, 16, 64, True),
+                   (128, 4096, 32, False), (128, 1024, 32, False)],
+    "eval_tokenizer": [(1024, 1024, 64, False), (65536, 16, 64, True)],
 }
 # The paths this checkout added last (phases 16 to 18): their new shapes are
 # timed in phase 19.
@@ -260,11 +288,13 @@ STAGE_PATHS = ("stage1_train", "stage1_eval", "action_train", "tokenize_with_act
 # in bf16.
 LFQ_HEAD_PATH_SHAPES = [(256, 128, 10), (16384, 64, 10), (64, 512, 18), (4096, 64, 10)]
 # (N, C, d, offset of x in elements) at which phase 4 and the card tests hold
-# K2 to its plain twin: the paths' calls, the tokenizer's 18-bit codebook, the
+# K2 to its plain twin: the paths' calls (and the prompt frame of `cli
+# generate` and `play` at genie.yaml, and `cli eval tokenizer`'s batch of
+# 4 x 8 frames on r05b), the tokenizer's 18-bit codebook, the
 # instance for any d up to 31, C no multiple of the 16-byte vector, one token
 # of one bit, and x at a 2-element offset (not 16-byte aligned).
 LFQ_HEAD_CASES = [(n, c, d, 0) for n, c, d in LFQ_HEAD_PATH_SHAPES] + [
-    (4096, 512, 18, 0), (4099, 512, 31, 0), (33, 37, 7, 0), (7, 3, 31, 0), (1, 8, 1, 0),
+    (256, 64, 10, 0), (512, 512, 18, 0), (4096, 512, 18, 0), (4099, 512, 31, 0), (33, 37, 7, 0), (7, 3, 31, 0), (1, 8, 1, 0),
     (256, 128, 10, 2), (33, 64, 18, 2),
 ]
 # K1 and K3 in bf16 are held to their twins at every path case, then at tile
@@ -1245,6 +1275,11 @@ def _read_shapes() -> dict:
     return {name: dict(fns[name].launches_by_shape) for name in _FLASH}
 
 
+def _read_k2_shapes() -> dict:
+    """Launches of K2 by (N, C, d) since the last `_reset_counts`."""
+    return dict(_counters()["lfq_head"].launches_by_shape)
+
+
 def _assert_path_kernels(label: str, path: str, show: bool = True) -> dict:
     """The bf16 K1, K3 and K4 launches since the last `_reset_counts` all
     took the tensor-core variant, K1 ran at exactly the shapes
@@ -2172,6 +2207,21 @@ def _diff(now: dict, before: dict) -> dict:
     return {k: now[k] - before.get(k, 0) for k in now}
 
 
+class _Tf32Off:
+    """TF32 off and cuDNN deterministic inside, restored after."""
+
+    def __enter__(self):
+        b = torch.backends
+        self.saved = (b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32, b.cudnn.deterministic)
+        b.cuda.matmul.allow_tf32 = b.cudnn.allow_tf32 = False
+        b.cudnn.deterministic = True
+
+    def __exit__(self, *exc):
+        b = torch.backends
+        b.cuda.matmul.allow_tf32, b.cudnn.allow_tf32, b.cudnn.deterministic = self.saved
+        return False
+
+
 class TrainerWatch:
     """While a trainer runs through the CLI: the kernels' counts start at 0,
     and each call of its `MetricLogger.log` or `CheckpointWriter.save`
@@ -2408,10 +2458,6 @@ def phase_trainer_dynamics(dev, smi: str, work: Path) -> dict:
     tokenize = {"launches": {k: v // n_clips for k, v in counts.items()},
                 "ms_per_clip": tok_s / n_clips * 1e3}
 
-    det = (torch.backends.cudnn.deterministic, torch.backends.cuda.matmul.allow_tf32,
-           torch.backends.cudnn.allow_tf32)
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     over = {"data": {"root": str(tokens)}, "model": {"optimizer": {"warmup_steps": 2,
                                                                   "decay_steps": 8}}}
     runs = {}
@@ -2421,24 +2467,20 @@ def phase_trainer_dynamics(dev, smi: str, work: Path) -> dict:
               "flash_attention_bwd_dq": n_dyn, "lfq_head": 0, "lfq_entropy_fwd": 0,
               "lfq_entropy_bwd": 0}
     torch.cuda.reset_peak_memory_stats()
-    try:
-        with TrainerWatch() as watch:
-            for name in ("whole", "resumed"):
-                runs[name] = work / f"dynamics_{name}"
-                cfg = yaml_copy("dynamics.yaml", work, {**over, **trainer_overrides(
-                    runs[name], max_steps=8, val_check_interval=4, limit_val_batches=1,
-                    ckpt_every_n_steps=4)})
+    with _Tf32Off(), TrainerWatch() as watch:
+        for name in ("whole", "resumed"):
+            runs[name] = work / f"dynamics_{name}"
+            cfg = yaml_copy("dynamics.yaml", work, {**over, **trainer_overrides(
+                runs[name], max_steps=8, val_check_interval=4, limit_val_batches=1,
+                ckpt_every_n_steps=4)})
+            watch.new_run()
+            if name == "whole":
+                cli(["train", "dynamics", "--config", cfg])
+            else:
+                cli(["train", "dynamics", "--config", cfg, "--max-steps", "4"])
                 watch.new_run()
-                if name == "whole":
-                    cli(["train", "dynamics", "--config", cfg])
-                else:
-                    cli(["train", "dynamics", "--config", cfg, "--max-steps", "4"])
-                    watch.new_run()
-                    cli(["train", "dynamics", "--config", cfg, "--resume"])
-            assert_trainer_launches("trainer dynamics", "trainer_dynamics", watch.steps, expect)
-    finally:
-        (torch.backends.cudnn.deterministic, torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = det
+                cli(["train", "dynamics", "--config", cfg, "--resume"])
+        assert_trainer_launches("trainer dynamics", "trainer_dynamics", watch.steps, expect)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     sched = load_config(cfg, "dynamics").model.optimizer.schedule()
     for name, run in runs.items():
@@ -2470,6 +2512,16 @@ def phase_trainer_dynamics(dev, smi: str, work: Path) -> dict:
             "tokenize_data": tokenize}
 
 
+# Phase 22's copy of configs/r05b_tokenizer.yaml (phase 24 evaluates its
+# checkpoint): synthetic 4 x 8 x 64x64 clips, the bit-balance anneal from
+# step 2 over 4 steps, warm-up 2 and cosine to 8.
+R05B_OVERRIDES = {
+    "data": {"source": "synthetic", "root": "", "num_frames": 8, "batch_size": 4,
+             "height": 64, "width": 64},
+    "model": {"lfq_bit_balance_anneal_start": 2, "lfq_bit_balance_anneal_steps": 4,
+              "optimizer": {"warmup_steps": 2, "decay_steps": 8}}}
+
+
 def phase_trainer_r05b(dev, smi: str, work: Path) -> dict:
     """`cli train tokenizer --config configs/r05b_tokenizer.yaml` at full
     width (MAGVIT2 d = 18, the streaming decoder, EMA 0.999, cosine with
@@ -2488,11 +2540,7 @@ def phase_trainer_r05b(dev, smi: str, work: Path) -> dict:
     from open_genie_tpu_torch.train.losses import TokenizerTrainModule
 
     run = work / "r05b"
-    over = {"data": {"source": "synthetic", "root": "", "num_frames": 8, "batch_size": 4,
-                     "height": 64, "width": 64},
-            "model": {"lfq_bit_balance_anneal_start": 2, "lfq_bit_balance_anneal_steps": 4,
-                      "optimizer": {"warmup_steps": 2, "decay_steps": 8}}}
-    cfg = yaml_copy("r05b_tokenizer.yaml", work, {**over, **trainer_overrides(
+    cfg = yaml_copy("r05b_tokenizer.yaml", work, {**R05B_OVERRIDES, **trainer_overrides(
         run, max_steps=8, ckpt_every_n_steps=4)})
     mcfg = load_config(cfg, "tokenizer").model
     decay = mcfg.optimizer.ema_decay
@@ -2573,6 +2621,493 @@ def phase_trainer_r05b(dev, smi: str, work: Path) -> dict:
             "checkpoint_gib": size / 2 ** 30, "launches": watch.steps[-1]["launches"]}
 
 
+# Keys of the JAX package's reports (`open_genie_tpu/eval.py`):
+# `evaluate_tokenizer` (:378-394), `evaluate_genie` (:237-272),
+# `action_controllability` (:197-207) and `evaluate_dynamics` (:313);
+# `tests/test_torch_smoke_checks.py` holds them to the JAX functions.
+EVAL_TOKENIZER_KEYS = frozenset({
+    "psnr", "ssim", "rec_mse", "usage", "distinct_codes", "usage_of_sampled_ceiling",
+    "perplexity", "entropy_bits", "factorized_entropy_bits", "factorized_perplexity",
+    "num_tokens", "num_batches"})
+EVAL_GENIE_KEYS = frozenset({
+    "loss", "act_loss", "dyn_loss", "act_rec_loss", "act_q_loss", "dyn_masked_acc",
+    "dyn_masked_frac", "act_code_usage", "act_code_perplexity", "act_code_entropy_bits",
+    "num_batches"})
+CONTROLLABILITY_KEYS = frozenset({
+    "action_divergence", "seed_divergence", "action_to_noise_ratio", "controllability_frames",
+    "controllability_branches", "controllability_pool"})
+EVAL_DYNAMICS_KEYS = frozenset({"loss", "masked_acc", "masked_frac", "num_batches"})
+# Phase 23's .gvid file: synthetic clips of tokenize.yaml's 16 x 64x64 frames.
+GVID_CLIPS, GVID_SHAPE = 64, (16, 64, 64)
+GENERATE_FRAMES, PLAY_FRAMES, PLAY_MAX_FRAMES = 16, 40, 32
+
+
+def check_report(label: str, report: dict, keys: frozenset) -> None:
+    """A CLI's printed report has exactly the JAX package's keys, every
+    value finite."""
+    assert set(report) == set(keys), (
+        f"{label}: keys {sorted(set(report) ^ set(keys))} differ from the JAX package's")
+    bad = [k for k, v in report.items() if not math.isfinite(float(v))]
+    assert not bad, f"{label}: non-finite {bad}"
+
+
+def native_epoch_matches(loader, ds) -> int:
+    """The native loader's first epoch, batch by batch, against `ds.read`
+    of the specs `loader.epoch_specs(1)` documents (its clips and start
+    frames in the JAX package's draw order). Returns the batches compared."""
+    specs = loader.epoch_specs(1)
+    n = 0
+    for spec, batch in zip(specs, loader):
+        want = ds.read(spec.reshape(-1, 2), torch.empty(batch.shape))
+        assert torch.equal(batch, want), f"native batch {n} differs from its documented clips"
+        n += 1
+    assert n == len(specs) == len(loader)
+    return n
+
+
+def f32_path_check(label: str, shapes: dict, dev) -> float:
+    """K1 in f32 (the CUDA-core variant) against its plain twin at every
+    `(B*H, N, D, causal)` that an f32 path launched it at, on random
+    inputs of that shape (the twin over slices of 8 heads); returns the
+    largest |difference| of o and lse."""
+    from open_genie_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    err = 0.0
+    for bh, n, d, causal in sorted(shapes):
+        q, k, v = (torch.randn(bh, n, d, generator=g, device=dev) for _ in range(3))
+        o, lse = flash_attention(q, k, v, d ** -0.5, causal)
+        o_ref, lse_ref = _by_heads(flash_attention_plain, (q, k, v), d ** -0.5, causal)
+        torch.cuda.synchronize()
+        e = max((o - o_ref).abs().max().item(), (lse - lse_ref).abs().max().item())
+        print(f"[{label}] K1 f32 at {(bh, n, d, causal)} against its twin: |d| {e:.3g}")
+        assert e <= K1_TOL_F32, f"{label}: f32 K1 at {(bh, n, d, causal)} disagrees"
+        err = max(err, e)
+        del q, k, v, o, lse, o_ref, lse_ref
+    return err
+
+
+def _assert_k2_checked(label: str) -> dict:
+    """K2 ran, since the last `_reset_counts`, only at shapes that phase 4
+    holds to its twin in f32 and bf16 (`LFQ_HEAD_CASES`)."""
+    k2 = _read_k2_shapes()
+    checked = {(n, c, d) for n, c, d, _ in LFQ_HEAD_CASES}
+    assert set(k2) <= checked, f"{label}: K2 at {sorted(set(k2) - checked)}, unchecked"
+    return k2
+
+
+def _f32_launches(label: str) -> dict:
+    """Since the last `_reset_counts`: every K1 launch took the CUDA-core
+    (f32) variant, none of K3-K6 ran; returns K1's launches by shape."""
+    fns = _counters()
+    counts = _read_counts()
+    k1 = fns["flash_attention_fwd"]
+    assert k1.launches_by_variant["simt"] == counts["flash_attention_fwd"], (
+        f"{label}: an f32 path's K1 launch took the tensor cores")
+    assert all(counts[n] == 0 for n in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+                                        "lfq_entropy_fwd", "lfq_entropy_bwd")), counts
+    return dict(k1.launches_by_shape)
+
+
+def phase_gvid(dev, smi: str, work: Path) -> dict:
+    """The native `.gvid` loader at tokenize.yaml's shape: GVID_CLIPS
+    synthetic clips of 16 x 64x64x3 uint8 written with `write_gvid` (the
+    loader builds `libgvid` from `native/gvid_loader.cpp` into `build/` at
+    first use); its first epoch against `GVidDataset` reads of the clips
+    and starts it documents; batches per second with 2 threads beside
+    `BatchLoader` (2 workers) over the same file, both into pinned memory;
+    then `cli train tokenizer` on a tokenize.yaml copy reading the file
+    (4 steps, `--resume` to 6): the batches each step trained on are an
+    uninterrupted run's (through `seek`), and phase 16's launches per step
+    (K1 70, K3 38, K4 38) on the tensor cores."""
+    from open_genie_tpu_torch.cli import main as cli
+    from open_genie_tpu_torch.data import native
+    from open_genie_tpu_torch.data.loader import BatchLoader
+    from open_genie_tpu_torch.data.video import SyntheticVideo
+    from open_genie_tpu_torch.models.configs import tokenize_yaml_config
+    from open_genie_tpu_torch.train.config import load_config
+    from open_genie_tpu_torch.train.losses import TokenizerTrainModule
+    from open_genie_tpu_torch.train.trainer import _compute_dtype
+
+    path = work / "clips.gvid"
+    t0 = time.perf_counter()
+    t, h, w = GVID_SHAPE
+    clips = SyntheticVideo(num_videos=GVID_CLIPS, num_frames=t, height=h, width=w, seed=SEED)
+    videos = (np.stack([clips[i] for i in range(GVID_CLIPS)]) * 255).round().astype(np.uint8)
+    native.write_gvid(str(path), videos)
+    print(f"[gvid] libgvid {'built' if native.BUILD['built'] else 'reused'} at "
+          f"{native.BUILD['path'].relative_to(HERE)} in {native.BUILD['seconds']:.2f} s; "
+          f"{GVID_CLIPS} clips {videos.shape[1:]} uint8 ({path.stat().st_size / 1e6:.1f} MB) "
+          f"made and written in {time.perf_counter() - t0:.2f} s")
+    ds = native.GVidDataset(str(path))
+    batch = 8
+    n = native_epoch_matches(native.NativeBatchLoader(ds, batch, num_threads=2, seed=SEED), ds)
+    np.testing.assert_array_equal(ds[5], videos[5].astype(np.float32) * np.float32(1 / 255))
+
+    def rate(loader, epochs: int = 3) -> float:
+        t = time.perf_counter()
+        served = sum(1 for _ in range(epochs) for _ in loader)
+        return served / (time.perf_counter() - t)
+
+    rates, pin = {}, dev.type == "cuda"
+    for name in ("native", "BatchLoader", "native", "BatchLoader"):
+        loader = (native.NativeBatchLoader(ds, batch, num_threads=2, seed=SEED, pin_memory=pin)
+                  if name == "native" else
+                  BatchLoader(ds, batch, num_workers=2, seed=SEED, pin_memory=pin))
+        rates.setdefault(name, []).append(rate(loader))
+    print(f"[gvid] first epoch ({n} batches of {batch}) equal to the documented clips; pinned "
+          f"batches per second over 3 epochs, in turns: native loader (2 threads) "
+          f"{[round(r, 1) for r in rates['native']]}, BatchLoader (2 workers) "
+          f"{[round(r, 1) for r in rates['BatchLoader']]} (host: "
+          f"{os.cpu_count()} cores)")
+
+    run = work / "gvid_tokenizer"
+    cfg = yaml_copy("tokenize.yaml", work, {"data": {"source": "gvid", "root": str(path)},
+                                            **trainer_overrides(run, max_steps=6,
+                                                                ckpt_every_n_steps=4)})
+    with torch.device("meta"):
+        meta = TokenizerTrainModule(**tokenize_yaml_config())
+    n_tok, n_disc = _attn_count(meta.model), _attn_count(meta.gan_crit)
+    expect = {"flash_attention_fwd": 2 * n_tok + 3 * n_disc,
+              "flash_attention_bwd_dkv": n_tok + 3 * n_disc,
+              "flash_attention_bwd_dq": n_tok + 3 * n_disc, "lfq_head": 0,
+              "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0}
+    seen, forward = [], TokenizerTrainModule.forward
+
+    @functools.wraps(forward)
+    def watched(module, video, *args, **kwargs):
+        if kwargs.get("train", True):
+            seen.append(video[:, :, ::16, ::16].detach().float().cpu())
+        return forward(module, video, *args, **kwargs)
+
+    TokenizerTrainModule.forward = watched
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with TrainerWatch() as watch:
+            watch.new_run()
+            cli(["train", "tokenizer", "--config", cfg, "--max-steps", "4"])
+            watch.new_run()
+            state = cli(["train", "tokenizer", "--config", cfg, "--resume"])
+            assert_trainer_launches("gvid train", "gvid_train", watch.steps, expect)
+    finally:
+        TokenizerTrainModule.forward = forward
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    assert state.step == 6 and len(seen) == 6, (state.step, len(seen))
+    # The uninterrupted order, and the same through `seek(4)`.
+    tcfg = load_config(cfg, "tokenizer")
+    dtype = _compute_dtype(tcfg.trainer.precision) or torch.float32  # the step's cast
+
+    def served(seek: int, n: int) -> list:
+        loader = native.NativeBatchLoader(ds, tcfg.data.batch_size, seed=tcfg.trainer.seed)
+        loader.seek(seek)
+        epochs = itertools.chain.from_iterable(loader for _ in range(n))
+        return [b[:, :, ::16, ::16].to(dtype).float() for b in itertools.islice(epochs, n)]
+
+    want, tail = served(0, 6), served(4, 2)
+    assert all(torch.equal(a, b) for a, b in zip(tail, want[4:]))
+    same = [torch.equal(a, b) for a, b in zip(seen, want)]
+    records = read_jsonl(run / "logs")
+    _finite_records("gvid train", records)
+    steady = watch.steady_ms()
+    ms = statistics.median(steady)
+    print(f"[gvid train] {smi}: steps 1-6 trained on the uninterrupted run's batches {same} "
+          f"(steps 5-6 after --resume at 4; seek(4) serves the same); launches per step "
+          f"{watch.steps[-1]['launches']}; {ms:.1f} ms per step (median of {len(steady)}, min "
+          f"{min(steady):.1f}, max {max(steady):.1f}); peak memory {peak:.2f} GiB")
+    assert all(same), "a step trained on another batch than an uninterrupted run's"
+    ds.close()
+    return {"ms": ms, "peak_gib": peak, "launches": watch.steps[-1]["launches"],
+            "batches_per_s": {k: statistics.median(v) for k, v in rates.items()},
+            "build_s": native.BUILD["seconds"]}
+
+
+def _timed_cli(label: str, argv: list) -> tuple:
+    """`cli.main(argv)` with the counts at 0: its return value, ms,
+    launches and K1's launches by shape."""
+    from open_genie_tpu_torch.cli import main as cli
+
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = cli(argv)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, ms, _read_counts(), _f32_launches(label)
+
+
+def phase_eval_tokenizer(dev, smi: str, work: Path) -> dict:
+    """`cli eval tokenizer --max-batches 2` on phase 20's checkpoint
+    (tokenize.yaml) and `--ema` on phase 22's (r05b): the JAX package's
+    JSON keys, finite values; f32, as the JAX package's: K1 on the CUDA
+    cores at `PATH_CASES["eval_tokenizer"]` (phase 16's evaluation's), one
+    launch per tokenizer attention per batch, held to its twin there; ms
+    per batch."""
+    from open_genie_tpu_torch.models.configs import tokenize_yaml_config
+    from open_genie_tpu_torch.train.losses import TokenizerTrainModule
+
+    with torch.device("meta"):
+        n_tok = _attn_count(TokenizerTrainModule(**tokenize_yaml_config()).model)
+    out = {}
+    runs = (("tokenize.yaml", "tokenize.yaml", {}, work / "tokenizer", []),
+            ("r05b --ema", "r05b_tokenizer.yaml", R05B_OVERRIDES, work / "r05b", ["--ema"]))
+    for name, yaml_name, over, run, flags in runs:
+        cfg = yaml_copy(yaml_name, work, {**over, **trainer_overrides(run)})
+        ckpt = str(run / "ckpt")
+        report, ms, counts, shapes = _timed_cli(
+            f"eval tokenizer {name}", ["eval", "tokenizer", "--config", cfg, "--ckpt", ckpt,
+                                       "--max-batches", "2"] + flags)
+        check_report(f"eval tokenizer {name}", report, EVAL_TOKENIZER_KEYS)
+        batches = int(report["num_batches"])
+        per_batch = {k: v / batches for k, v in counts.items()}
+        print(f"[eval tokenizer] {smi}: {name}: {ms / batches:.1f} ms per batch ({batches} "
+              f"batches, f32, the model's set-up and the checkpoint's load included: {ms:.1f} "
+              f"ms); PSNR {report['psnr']:.3f} dB, SSIM {report['ssim']:.4f}, usage "
+              f"{report['usage']:.4f}; launches per batch {per_batch}; K1 by shape {shapes}")
+        assert batches == 2
+        if name == "tokenize.yaml":
+            assert set(shapes) == set(PATH_CASES["eval_tokenizer"]), shapes
+            assert counts["flash_attention_fwd"] == n_tok * batches and counts["lfq_head"] == 0
+            f32_path_check("eval tokenizer", set(shapes), dev)
+            out.update(ms_per_batch=ms / batches, launches={k: int(v) for k, v in
+                                                             per_batch.items()})
+        else:  # MAGVIT2: no attention; its 1x1 head into 18 bits fuses into K2
+            k2 = _assert_k2_checked(f"eval tokenizer {name}")
+            print(f"[eval tokenizer] {name}: K2 by (N, C, d) {k2}")
+            assert counts["flash_attention_fwd"] == 0 and counts["lfq_head"] == batches, counts
+            out["r05b_ema_ms_per_batch"] = ms / batches
+    return out
+
+
+def _genie_args(argv: list):
+    from open_genie_tpu_torch.cli import build_parser
+
+    return build_parser().parse_args(argv)
+
+
+def _watch_tokens():
+    """Record the token videos `Genie.generate_tokens` returns, and its
+    seconds (the prompt's tokenization and the rollout, synced)."""
+    from open_genie_tpu_torch.models.genie import Genie
+
+    got, seconds, real = [], [], Genie.generate_tokens
+
+    @functools.wraps(real)
+    def watched(self, prompt, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = real(self, prompt, *args, **kwargs)
+        got.append(out.cpu())
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    Genie.generate_tokens = watched
+    return got, seconds, lambda: setattr(Genie, "generate_tokens", real)
+
+
+def phase_generate_play(dev, smi: str, work: Path, train_launches: dict) -> dict:
+    """`generate` and `play` at genie.yaml's full width, through the
+    functions behind the commands (`cli.generate_video`, `cli.play_video`:
+    the card has no OpenCV to write the mp4): `cli train genie` takes 3
+    steps on a genie.yaml copy with `ema_decay: 0.999` (phase 9's launches
+    per step); `generate --ema --top-k 1` with scripted actions in f32
+    (TF32 off): the share of its tokens equal to the same call on the CPU,
+    printed (one moved commit cascades at full width), K1 and K2 per
+    generated frame against the rollout's structure; the compact model's
+    `generate` on the card and on the CPU, tokens equal; `--actions-from-data`;
+    `play` of PLAY_FRAMES scripted frames at `--max-frames` PLAY_MAX_FRAMES
+    (one rebase): launches per reset, step and rebase against the
+    session's structure, p50/p95 ms per frame."""
+    import yaml
+
+    from open_genie_tpu_torch.cli import generate_video, main as cli, play_video
+    from open_genie_tpu_torch.models.configs import genie_compact_config, genie_train_config
+    from open_genie_tpu_torch.models.genie import Genie
+    from open_genie_tpu_torch.serve import InteractiveSession
+
+    run = work / "genie"
+    cfg = yaml_copy("genie.yaml", work, trainer_overrides(run, max_steps=3,
+                                                         ckpt_every_n_steps=3))
+    # genie.yaml's optimizer is in the class_path/init_args form, which
+    # carries no EMA: the copy's is the plain form with the same rates.
+    with open(cfg) as f:
+        raw = yaml.safe_load(f)
+    raw["model"]["optimizer"] = {**raw["model"]["optimizer"]["init_args"], "ema_decay": 0.999}
+    with open(cfg, "w") as f:
+        yaml.safe_dump(raw, f, sort_keys=False)
+    torch.cuda.reset_peak_memory_stats()
+    with TrainerWatch() as watch:
+        watch.new_run()
+        cli(["train", "genie", "--config", cfg])
+        assert_trainer_launches("trainer genie", "train_step", watch.steps, train_launches)
+    ckpt = str(run / "ckpt")
+    with torch.device("meta"):
+        genie = Genie(**genie_train_config())
+    n_enc, n_dec = _attn_count(genie.tokenizer.enc_layers), _attn_count(genie.tokenizer.dec_layers)
+    n_dyn = _attn_count(genie.dynamics) // 2  # a spatial and a temporal one per block;
+    # the cached temporal attention is masked and takes the plain path
+    spf, frames = 25, GENERATE_FRAMES
+    actions = ",".join(str(i % 4) for i in range(frames + 1))
+    argv = ["generate", "--config", cfg, "--ckpt", ckpt, "--ema", "--frames", str(frames),
+            "--steps-per-frame", str(spf), "--top-k", "1", "--actions", actions]
+    out = {}
+    tokens, rollout_s, restore = _watch_tokens()
+    try:
+        with _Tf32Off():
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            video = generate_video(_genie_args(argv))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts, shapes = _read_counts(), _f32_launches("generate")
+            k2 = _assert_k2_checked("generate")
+            t0 = time.perf_counter()
+            video_cpu = generate_video(_genie_args(argv + ["--device", "cpu"]))
+            cpu_s = time.perf_counter() - t0
+        share = (tokens[0] == tokens[1]).float().mean().item()
+        first = next((f for f in range(1, frames + 1)
+                      if not torch.equal(tokens[0][:, f], tokens[1][:, f])), None)
+        want_k1 = n_enc + n_dyn * (1 + frames * (spf + 1)) + n_dec
+        per_frame = rollout_s[0] * 1e3 / frames
+        print(f"[generate] {smi}: genie.yaml --ema --top-k 1, {frames} frames at spf {spf}, "
+              f"f32: {per_frame:.1f} ms per generated frame in `Genie.generate_tokens` (the "
+              f"prompt's tokens and the rollout), {ms:.1f} ms for the whole call (the model's "
+              f"set-up, the checkpoint's load and the decode included); video {video.shape}; "
+              f"tokens equal to the "
+              f"CPU's same call ({cpu_s:.1f} s): {share:.4f} (first frame that differs: "
+              f"{first}); pixels max |d| {np.abs(video - video_cpu).max():.3g}; launches "
+              f"{counts} (K1 expected {want_k1}: {n_enc} prompt + {n_dyn} x (1 + {frames} x "
+              f"{spf + 1}) + {n_dec} decode), K2 by (N, C, d) {k2}")
+        assert video.shape == (frames + 1, 64, 64, 3) and np.isfinite(video).all()
+        assert counts["flash_attention_fwd"] == want_k1 and k2 == {(256, 64, 10): 1}, counts
+        f32_path_check("generate", set(shapes), dev)
+        out.update(ms=ms, ms_per_frame=per_frame, equal_to_cpu=share,
+                   launches={k: counts[k] for k in counts})
+
+        # The compact model, random weights from the seed: tokens exact.
+        tokens.clear()
+        compact = work / "compact_genie.yaml"
+        with open(compact, "w") as f:
+            yaml.safe_dump({"seed_everything": SEED, "model": json.loads(json.dumps(
+                genie_compact_config())), "data": {"source": "synthetic", "height": 32,
+                                                    "width": 32}}, f)
+        # scripted actions: drawn ones would come from each device's generator
+        small = ["generate", "--config", str(compact), "--frames", "3", "--steps-per-frame", "8",
+                 "--top-k", "1", "--size", "32", "--actions", "1,0,1,1"]
+        with _Tf32Off():
+            pix_gpu = generate_video(_genie_args(small))
+            pix_cpu = generate_video(_genie_args(small + ["--device", "cpu"]))
+        same = torch.equal(tokens[0], tokens[1])
+        print(f"[generate compact] tokens {tuple(tokens[0].shape)} equal CUDA vs CPU: {same}; "
+              f"pixels max |d| {np.abs(pix_gpu - pix_cpu).max():.3g}")
+        assert same, "the CLI's compact generate differs between the card and the CPU"
+        np.testing.assert_allclose(pix_gpu, pix_cpu, atol=PIX_TOL["atol"], rtol=PIX_TOL["rtol"])
+    finally:
+        restore()
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    replay = generate_video(_genie_args(["generate", "--config", cfg, "--ckpt", ckpt, "--ema",
+                                         "--frames", "8", "--actions-from-data"]))
+    torch.cuda.synchronize()
+    print(f"[generate --actions-from-data] {smi}: video {replay.shape} in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms; launches {_read_counts()}")
+    assert replay.shape[0] == 9 and np.isfinite(replay).all()  # a validation clip's size
+
+    # play: counts and times per reset and per step, through the session.
+    marks, reset, step = [], InteractiveSession.reset, InteractiveSession.step
+
+    def mark(kind, fn):
+        @functools.wraps(fn)
+        def wrapped(sess, *args, **kwargs):
+            torch.cuda.synchronize()
+            before, t = _read_counts(), time.perf_counter()
+            res = fn(sess, *args, **kwargs)
+            torch.cuda.synchronize()
+            marks.append((kind, (time.perf_counter() - t) * 1e3, _diff(_read_counts(), before),
+                          sess._rebases))
+            return res
+        return wrapped
+
+    InteractiveSession.reset, InteractiveSession.step = mark("reset", reset), mark("step", step)
+    script = ",".join(str(i % 4) for i in range(PLAY_FRAMES))
+    try:
+        _reset_counts()
+        frames_out = play_video(_genie_args(
+            ["play", "--config", cfg, "--ckpt", ckpt, "--ema", "--actions", script,
+             "--max-frames", str(PLAY_MAX_FRAMES)]))
+        shapes = _f32_launches("play")
+        _assert_k2_checked("play")
+    finally:
+        InteractiveSession.reset, InteractiveSession.step = reset, step
+    assert frames_out.shape == (1 + PLAY_FRAMES, 64, 64, 3) and np.isfinite(frames_out).all()
+    (_, reset_ms, at_reset, _), steps = marks[0], marks[1:]
+    k1 = [s[2]["flash_attention_fwd"] for s in steps]
+    rebased = [i for i in range(1, len(steps)) if steps[i][3] > steps[i - 1][3]]
+    dec_frame = at_reset["flash_attention_fwd"] - n_enc - n_dyn  # one prompt frame
+    per_step, keep = n_dyn * (8 + 1) + dec_frame, (1 + PLAY_MAX_FRAMES) // 2
+    step_ms = sorted(s[1] for i, s in enumerate(steps) if i not in rebased)
+    p50, p95 = step_ms[len(step_ms) // 2], step_ms[min(len(step_ms) - 1,
+                                                       int(0.95 * len(step_ms)))]
+    print(f"[play] {smi}: {PLAY_FRAMES} frames at --max-frames {PLAY_MAX_FRAMES}, spf 8, f32, "
+          f"streaming decode: rebased at step(s) {[i + 1 for i in rebased]}; per frame p50 "
+          f"{p50:.1f} ms, p95 {p95:.1f} ms; reset {reset_ms:.1f} ms, the rebasing step "
+          f"{[round(steps[i][1], 1) for i in rebased]} ms; K1 per reset "
+          f"{at_reset['flash_attention_fwd']}, K2 per reset {at_reset['lfq_head']}, K1 per step "
+          f"{sorted(set(k1))} (expected {per_step}; {per_step + keep * (n_dyn + dec_frame)} "
+          f"at the rebase)")
+    assert len(rebased) == 1 and at_reset["lfq_head"] == 1
+    assert all(k1[i] == (per_step + keep * (n_dyn + dec_frame) if i in rebased else per_step)
+               for i in range(len(steps))), k1
+    assert all(s[2]["lfq_head"] == 0 for s in steps)
+    f32_path_check("play", set(shapes), dev)
+    out["play"] = {"p50_ms": p50, "p95_ms": p95, "reset_ms": reset_ms,
+                   "per_reset": at_reset, "per_step": steps[0][2],
+                   "at_rebase": steps[rebased[0]][2]}
+    return out, cfg
+
+
+def phase_eval_genie_dynamics(dev, smi: str, work: Path, genie_cfg: str) -> dict:
+    """`cli eval genie --controllability-frames 4 --max-batches 2` on phase
+    25's checkpoint and `cli eval dynamics` on phase 21's shards and
+    checkpoint: the JAX package's JSON keys (with the controllability
+    ones), finite values, K1 in f32 held to its twin at every shape it ran;
+    ms per batch."""
+    out = {}
+    ckpt = str(work / "genie" / "ckpt")
+    report, ms, counts, shapes = _timed_cli("eval genie", [
+        "eval", "genie", "--config", genie_cfg, "--ckpt", ckpt, "--max-batches", "2",
+        "--controllability-frames", "4"])
+    check_report("eval genie", report, EVAL_GENIE_KEYS | CONTROLLABILITY_KEYS)
+    batches = int(report["num_batches"])
+    print(f"[eval genie] {smi}: {ms:.1f} ms for {batches} batches and the controllability "
+          f"rollouts (4 frames, 4 action and 4 noise branches; set-up included); loss {report['loss']:.4f}, "
+          f"action-to-noise ratio {report['action_to_noise_ratio']:.3f} over a pool of "
+          f"{report['controllability_pool']:.0f}; launches {counts}; K1 by shape {shapes}")
+    assert batches == 2 and counts["lfq_head"] > 0
+    print(f"[eval genie] K2 by (N, C, d) {_assert_k2_checked('eval genie')}")
+    f32_path_check("eval genie", set(shapes), dev)
+    out["eval_genie"] = {"ms": ms, "launches": counts}
+
+    tokens = work / "tokens"
+    cfg = yaml_copy("dynamics.yaml", work, {"data": {"root": str(tokens)},
+                                            **trainer_overrides(work / "dynamics_whole")})
+    report, ms, counts, shapes = _timed_cli("eval dynamics", [
+        "eval", "dynamics", "--config", cfg, "--ckpt", str(work / "dynamics_whole" / "ckpt"),
+        "--max-batches", "2"])
+    check_report("eval dynamics", report, EVAL_DYNAMICS_KEYS)
+    batches = int(report["num_batches"])
+    print(f"[eval dynamics] {smi}: {ms / batches:.1f} ms per batch ({batches} batch(es) of "
+          f"phase 21's validation shards, f32, set-up included); loss {report['loss']:.4f}, masked acc "
+          f"{report['masked_acc']:.4f}; launches {counts}; K1 by shape {shapes}")
+    assert counts["lfq_head"] == 0 and counts["flash_attention_fwd"] > 0
+    f32_path_check("eval dynamics", set(shapes), dev)
+    out["eval_dynamics_cli"] = {"ms": ms, "launches": counts}
+    return out
+
+
 def main() -> int:
     global SEED
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2616,15 +3151,28 @@ def main() -> int:
         trainer = {"tokenizer": phase_trainer_tokenizer(dev, device["smi"], stage1["ms"], work),
                    "dynamics": phase_trainer_dynamics(dev, device["smi"], work),
                    "r05b": phase_trainer_r05b(dev, device["smi"], work)}
+        # Phases 23 to 26 read the checkpoints and shards of 20 to 22.
+        gvid = phase_gvid(dev, device["smi"], work)
+        eval_tok = phase_eval_tokenizer(dev, device["smi"], work)
+        gen, genie_cfg = phase_generate_play(dev, device["smi"], work, train)
+        evals = phase_eval_genie_dynamics(dev, device["smi"], work, genie_cfg)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    cli_paths = {"gvid_train": gvid["launches"], "eval_tokenizer": eval_tok["launches"],
+                 "generate_cli": gen["launches"], "play": gen["play"]["per_step"],
+                 "eval_genie": evals["eval_genie"]["launches"],
+                 "eval_dynamics_cli": evals["eval_dynamics_cli"]["launches"]}
     kernels = [k1, k2, k3, k4, k5, k6]
     for k in kernels:
         name = k["name"]
-        # The trainer's paths first: one step of `cli train tokenizer` on
-        # tokenize.yaml, one clip of `cli tokenize-data`, one step of `cli
-        # train dynamics` and of `cli train tokenizer` on r05b.
-        by_path = {"trainer": trainer["tokenizer"]["launches"][name],
+        # The CLI's paths of phases 23 to 26 (one gvid-fed train step, one
+        # evaluated batch, one `generate` call, one `play` step, one `eval
+        # genie` and one `eval dynamics` call), then the trainer's: one step
+        # of `cli train tokenizer` on tokenize.yaml, one clip of `cli
+        # tokenize-data`, one step of `cli train dynamics` and of `cli train
+        # tokenizer` on r05b.
+        by_path = {**{path: c[name] for path, c in cli_paths.items()},
+                   "trainer": trainer["tokenizer"]["launches"][name],
                    "tokenize_data": trainer["dynamics"]["tokenize_data"]["launches"][name],
                    "trainer_dynamics": trainer["dynamics"]["launches"][name],
                    "trainer_r05b": trainer["r05b"]["launches"][name],
@@ -2632,8 +3180,8 @@ def main() -> int:
                    "serve": serve["launches"][name], "tokenizer_train": tok_train[name],
                    "train_step": train.get(name, 0), "rollout": rollout.get(name, 0)}
         # The newest path that runs the kernel, in the order above: one
-        # trainer step on tokenize.yaml for K1, K3 and K4, one clip of
-        # tokenize-data for K2, one MAGVIT2 tokenizer training step for K5
+        # gvid-fed trainer step on tokenize.yaml for K1, K3 and K4, one
+        # `generate` call for K2, one MAGVIT2 tokenizer training step for K5
         # and K6.
         k["launches"] = next((c for c in by_path.values() if c > 0), 0)
         k["launches_by_path"] = by_path
@@ -2657,8 +3205,13 @@ def main() -> int:
     trainer_times = {
         kind: {key: v for key, v in out.items() if key not in ("launches", "shapes")}
         for kind, out in trainer.items()}
+    cli_times = {"gvid": {k: v for k, v in gvid.items() if k != "launches"},
+                 "eval_tokenizer": {k: v for k, v in eval_tok.items() if k != "launches"},
+                 "generate": {k: v for k, v in gen.items() if k not in ("launches", "play")},
+                 "play": {k: gen["play"][k] for k in ("p50_ms", "p95_ms", "reset_ms")},
+                 **{path: {"ms": evals[path]["ms"]} for path in evals}}
     print(json.dumps({"kernels": kernels, "serve": serve["times"], "stages": stages,
-                      "trainer": trainer_times}))
+                      "trainer": trainer_times, "cli": cli_times}))
     print(json.dumps({"ok": True, "device": {k: device[k] for k in ("platform", "kind", "count")}}))
     return 0
 

@@ -68,3 +68,34 @@ class VGG16Features(nn.Module):
             if name in self.feat_layers:
                 taps[name] = h.permute(0, 2, 3, 1)
         return taps
+
+
+@torch.no_grad()
+def load_torch_vgg16_npz(path: str, vgg: VGG16Features) -> VGG16Features:
+    """Load converted torchvision VGG16 weights into `vgg` in place.
+
+    The `.npz` holds `features.{i}.weight` (OIHW, as the convs here) and
+    `features.{i}.bias` arrays, as `tools/convert_vgg_weights.py` writes
+    them. The trunk holds the convs up to its deepest tap, so it loads those
+    of the file's 13; a conv missing from the file raises."""
+    import numpy as np
+
+    data = np.load(path)
+    missing = []
+    for idx, kind, _ in layer_schedule():
+        if kind != "conv" or idx > vgg.last:
+            continue
+        conv = getattr(vgg, f"conv_{idx}")
+        for name, param in (("weight", conv.weight), ("bias", conv.bias)):
+            key = f"features.{idx}.{name}"
+            if key not in data:
+                missing.append(key)
+                continue
+            value = torch.from_numpy(np.asarray(data[key]))
+            if tuple(value.shape) != tuple(param.shape):
+                raise ValueError(f"{path}: {key} has shape {tuple(value.shape)}, the trunk's "
+                                 f"conv_{idx} {tuple(param.shape)}")
+            param.copy_(value)
+    if missing:
+        raise ValueError(f"VGG weight file {path} lacks {missing}")
+    return vgg

@@ -105,6 +105,19 @@ class TokenizerTrainModule(nn.Module):
         }
         return loss, metrics
 
+    # Inference passthroughs to the tokenizer (evaluation, tooling).
+    def tokenize(self, video: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.model.tokenize(video)
+
+    def reconstruct(self, video: torch.Tensor, beta: float = 100.0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`(reconstruction, token ids)` with `train=False`."""
+        rec, out = self.model(video, beta=beta, train=False)
+        return rec, out["idxs"]
+
+    def decode_tokens(self, idxs: torch.Tensor) -> torch.Tensor:
+        return self.model.decode_tokens(idxs)
+
 
 class GenieTrainModule(nn.Module):
     """Genie joint training objective; the tokenizer inside is frozen

@@ -52,10 +52,6 @@ from open_genie_tpu_torch.train.losses import (
 from open_genie_tpu_torch.train.metrics import MetricLogger
 from open_genie_tpu_torch.utils import init_weights
 
-NOT_PORTED = ("data source {!r} is not ported yet (ROADMAP.md Queue 1: "
-              "`data/native.py` and `data/kinetics.py`)")
-
-
 def resolve_device(device, what: str = "training") -> torch.device:
     """`device` as a `torch.device`; a CUDA device without CUDA raises (no
     silent fall-back to the CPU)."""
@@ -83,12 +79,30 @@ def build_dataset(cfg, split: str = "train") -> object:
             width=cfg.width,
             seed=0 if split == "train" else 1,
         )
-    if cfg.source in ("gvid", "kinetics"):
-        raise NotImplementedError(NOT_PORTED.format(cfg.source))
+    if cfg.source == "gvid":
+        from open_genie_tpu_torch.data.native import GVidDataset
+
+        # <root>/<split>.gvid, or a single file that serves both splits
+        path = cfg.root
+        if os.path.isdir(path):
+            path = os.path.join(path, f"{split}.gvid")
+        return GVidDataset(path, num_frames=cfg.num_frames)
     if cfg.source == "tokens":
         from open_genie_tpu_torch.data.tokens import TokenClipDataset
 
         return TokenClipDataset(cfg.root, split=split)
+    if cfg.source == "kinetics":
+        from open_genie_tpu_torch.data.kinetics import KineticsFolder
+
+        return KineticsFolder(
+            root=cfg.root,
+            split=split if split != "valid" else "val",
+            frames_per_clip=cfg.num_frames,
+            step_between_clips=cfg.step_between_clips,
+            frame_rate=cfg.frame_rate,
+            num_classes=cfg.num_classes,
+            randomize=cfg.randomize,
+        )
     return Platformer2D(
         root=cfg.root,
         env_name=cfg.env_name,
@@ -133,21 +147,30 @@ def _check_action_frames(latent_action: dict, dataset, cfg) -> None:
                          f"{tuple(shape)} frames")
 
 
-def build_loader(cfg, dataset, device, split: str = "train") -> BatchLoader:
-    """Batch loader for a dataset: shuffled train batches, validation
-    batches of `min(batch_size, len(dataset))` in order, pinned host
-    memory for a CUDA device."""
+def build_loader(cfg, dataset, device, split: str = "train"):
+    """Batch loader for a dataset: the C++ prefetcher for a .gvid source
+    (`data/native.py`, `data.num_workers` threads), `BatchLoader`'s decode
+    threads otherwise; shuffled train batches, validation batches of
+    `min(batch_size, len(dataset))` in order, pinned host memory for a
+    CUDA device."""
+    from open_genie_tpu_torch.data.native import GVidDataset, NativeBatchLoader
+
     train = split == "train"
     batch_size = cfg.data.batch_size
     if not train:
         batch_size = min(batch_size, len(dataset))
+    pin = torch.device(device).type == "cuda"
+    if isinstance(dataset, GVidDataset):
+        return NativeBatchLoader(dataset, batch_size=batch_size, shuffle=train,
+                                 num_threads=cfg.data.num_workers, seed=cfg.trainer.seed,
+                                 pin_memory=pin)
     return BatchLoader(
         dataset,
         batch_size=batch_size,
         shuffle=train,
         num_workers=cfg.data.num_workers,
         seed=cfg.trainer.seed,
-        pin_memory=torch.device(device).type == "cuda",
+        pin_memory=pin,
     )
 
 
@@ -243,16 +266,22 @@ def restore_ema_params(ckpt_dir: str) -> Tuple[Dict[str, torch.Tensor], int]:
     return ema, step
 
 
-def load_genie_params(cfg: ExperimentConfig, ckpt: Optional[str] = None, device="cuda"
-                      ) -> Tuple[dict, GenieTrainModule, int]:
+def load_genie_params(cfg: ExperimentConfig, ckpt: Optional[str] = None, device="cuda",
+                      use_ema: bool = False) -> Tuple[dict, GenieTrainModule, int]:
     """A `GenieTrainModule` of the config with weights from `trainer.seed`,
-    then the checkpoint's parameters, for inference: `(genie_kwargs,
-    module, step)` (the Genie is `module.model`)."""
+    then the checkpoint's parameters (its EMA with `use_ema`), for
+    inference: `(genie_kwargs, module, step)` (the Genie is `module.model`).
+    `use_ema` without a checkpoint, or on one that carries no EMA, raises."""
+    if use_ema and not ckpt:
+        raise ValueError("--ema requires --ckpt (there is no EMA without a checkpoint)")
     genie_kwargs = genie_model_kwargs(cfg.model)
     module = init_module(GenieTrainModule(genie_kwargs), cfg.trainer.seed,
                          resolve_device(device, "load_genie_params"))
     step = 0
-    if ckpt:
+    if ckpt and use_ema:
+        ema, step = restore_ema_params(ckpt)
+        module.load_state_dict(ema)
+    elif ckpt:
         module, step = restore_params(ckpt, module)
     return genie_kwargs, module, step
 
@@ -473,13 +502,14 @@ def train_tokenizer(cfg: ExperimentConfig, resume: bool = False, device="cuda") 
     tcfg = cfg.trainer
     _single_device(tcfg)
     device = resolve_device(device, "train_tokenizer")
-    if mcfg.perc_loss_weight > 0 and mcfg.perc_weights_npz:
-        raise NotImplementedError(
-            "model.perc_weights_npz: loading converted VGG16 weights is not ported yet "
-            "(ROADMAP.md Queue 1, vgg.py::load_torch_vgg16_npz)")
     dataset = build_dataset(cfg.data)
     module = init_module(build_tokenizer_module(mcfg), tcfg.seed, device)
     warn_random_perceptual(mcfg)
+    if mcfg.perc_loss_weight > 0 and mcfg.perc_weights_npz:
+        # Pretrained perceptual features: converted torchvision VGG16 weights.
+        from open_genie_tpu_torch.modules.vgg import load_torch_vgg16_npz
+
+        load_torch_vgg16_npz(mcfg.perc_weights_npz, module.perc_crit.vgg)
     loss_kwargs = _entropy_anneal_kwargs(mcfg)
     if tcfg.gan_alternate and mcfg.gan_loss_weight > 0:
         loss_kwargs["gan_branch"] = lambda step: "gen" if step % 2 == 0 else "dis"

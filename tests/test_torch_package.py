@@ -37,6 +37,9 @@ def test_port_imports_without_jax():
         "import open_genie_tpu_torch.eval\n"
         "import open_genie_tpu_torch.train.trainer\n"
         "import open_genie_tpu_torch.cli\n"
+        "import open_genie_tpu_torch.data.native\n"
+        "import open_genie_tpu_torch.data.kinetics\n"
+        "import open_genie_tpu_torch.utils.debug\n"
         "print('ok')\n"
     )
     proc = subprocess.run(

@@ -163,3 +163,77 @@ def test_yaml_copy_overrides_only_what_it_names(tmp_path):
     assert got["trainer"] == {**ref["trainer"], "max_steps": 8, "log_every_n_steps": 1,
                               "ckpt_dir": str(tmp_path / "run" / "ckpt"),
                               "log_dir": str(tmp_path / "run" / "logs")}
+
+
+def _jax_reports():
+    """The report of each JAX harness on the compact model, one batch."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    import numpy as np
+
+    from open_genie_tpu import eval as jeval
+    from open_genie_tpu.models.dynamics import DynamicsModel as JDynamics
+    from open_genie_tpu.models.genie import Genie as JGenie
+    from open_genie_tpu.models.tokenizer import VideoTokenizer as JTokenizer
+    from tools.parity_check import GENIE_CFG
+
+    jm = JGenie(**GENIE_CFG)
+    key = jax.random.PRNGKey(0)
+    video = np.random.default_rng(0).uniform(size=(1, 2, 32, 32, 3)).astype(np.float32)
+    params = jax.jit(lambda k: jm.init(k, jnp.zeros((1, 2, 32, 32, 3)), k,
+                                       method=jm.init_full))(key)["params"]
+    tokens = {"tokens": np.zeros((1, 2, 4, 4), np.int32), "actions": np.zeros((1, 2), np.int32)}
+    return {
+        "EVAL_TOKENIZER_KEYS": jeval.evaluate_tokenizer(
+            JTokenizer(**GENIE_CFG["tokenizer"]), {"params": params["tokenizer_"]}, [video]),
+        "EVAL_GENIE_KEYS": jeval.evaluate_genie(jm, params, [video], key),
+        "CONTROLLABILITY_KEYS": jeval.action_controllability(
+            jm, {"params": params}, jnp.asarray(video[:, :1]), key, num_frames=1,
+            steps_per_frame=1, n_branches=2),
+        "EVAL_DYNAMICS_KEYS": jeval.evaluate_dynamics(
+            JDynamics(**GENIE_CFG["dynamics"], tok_vocab=256, act_vocab=16),
+            params["dynamics_"], [tokens], key),
+    }
+
+
+def test_report_keys_are_the_jax_packages_and_check_report_holds_them():
+    """Phases 24 and 26 hold the CLI's reports to the JAX harnesses' keys
+    (`chip_smoke.EVAL_*_KEYS`): the sets are those keys, and `check_report`
+    fails a missing or extra key and a non-finite value."""
+    for name, report in _jax_reports().items():
+        keys = getattr(chip_smoke, name)
+        assert set(report) == keys, name
+        chip_smoke.check_report(name, dict(report), keys)
+        first = sorted(report)[0]
+        for bad in ({k: v for k, v in report.items() if k != first},
+                    {**report, "extra": 1.0}, {**report, first: float("nan")}):
+            with pytest.raises(AssertionError):
+                chip_smoke.check_report(name, bad, keys)
+
+
+def test_native_epoch_check_catches_a_wrong_or_missing_batch(tmp_path):
+    """Phase 23's check of the native loader's first epoch against the
+    clips and starts it documents: it passes the loader and fails one that
+    serves its batches in another order or stops a batch early."""
+    import numpy as np
+
+    from open_genie_tpu_torch.data import native
+
+    path = str(tmp_path / "c.gvid")
+    native.write_gvid(path, np.random.default_rng(0).integers(
+        0, 256, (6, 5, 4, 4, 3), dtype=np.uint8))
+    ds = native.GVidDataset(path, num_frames=3)
+    assert chip_smoke.native_epoch_matches(native.NativeBatchLoader(ds, 2, seed=1), ds) == 3
+
+    class Swapped(native.NativeBatchLoader):
+        def __iter__(self):
+            batches = list(super().__iter__())
+            return iter(batches[::-1])
+
+    class Short(native.NativeBatchLoader):
+        def __iter__(self):
+            return iter(list(super().__iter__())[:-1])
+
+    for bad in (Swapped, Short):
+        with pytest.raises(AssertionError):
+            chip_smoke.native_epoch_matches(bad(ds, 2, seed=1), ds)

@@ -215,8 +215,8 @@ def test_gan_alternate_branch_follows_the_step_across_a_resume(tmp_path, monkeyp
 
 def test_entry_points_need_cuda_or_an_explicit_cpu(tmp_path):
     """Without CUDA a stage, the CLI and tokenize-data raise unless the
-    caller asks for the CPU; more than one device raises; the sources not
-    ported yet raise naming the roadmap."""
+    caller asks for the CPU; more than one device raises; a gvid source
+    with no file for the split raises before anything is written."""
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the entry points would run")
     cfg_path = _write(tmp_path / "t.yaml", _tokenizer_yaml(str(tmp_path), "t"))
@@ -232,6 +232,6 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(tmp_path):
     with pytest.raises(NotImplementedError, match="distributed training is not ported"):
         ttrainer.train_tokenizer(cfg, device="cpu")
     cfg.trainer.n_data, cfg.data.source, cfg.data.root = 1, "gvid", str(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError, match="train.gvid"):
         ttrainer.train_tokenizer(cfg, device="cpu")
     assert not os.path.exists(tmp_path / "t_ckpt")
