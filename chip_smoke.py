@@ -148,8 +148,25 @@ Phases, in order (any failure raises and the exit code is non-zero):
      per frame, ms per frame, play's p50/p95;
  26. `cli eval genie --controllability-frames 4` on phase 25's checkpoint and
      `cli eval dynamics` on phase 21's: the JAX package's keys, finite
-     values, f32 K1 held to its twin at its shapes, ms.
-Every line of a time or a memory size in phases 16 to 26 carries the
+     values, f32 K1 held to its twin at its shapes, ms;
+ 27. the video discriminator: the compact tokenizer step with
+     `COMPACT_VIDEO_DISC_KWARGS` on the card against the CPU in f32, then
+     phase 12's MAGVIT2 d=18 step with `VIDEO_DISC_KWARGS` judging whole 4 x
+     8 x 64x64 clips (K1, K3, K4 6 a step on the tensor cores, K5, K6 once),
+     every term finite, a gradient on every trainable parameter, the VGG
+     unchanged; ms per step beside phase 12's, peak memory, one profiled
+     step, and the blur's grouped conv3d timed alone at its two inputs;
+ 28. the alternative resamplers (`alt_tokenizers`): the compact twins'
+     tokens and pixels on the card against the CPU's in f32; at MAGVIT2 d=18
+     width on `ALT_BATCH` clips in bf16, `ALT_ENC`'s tokenize (K1 twice at
+     the new shapes of `PATH_CASES["alt_tokenize"]`, K2 once at (512, 512,
+     18)), a decode with `ALT_STREAM_DEC` and with `ALT_TCONV_DEC`, the stream
+     of the 4 token frames (each layer within `bf16_excess` of the batch
+     decode's input to it, in f32 within STREAM_EXACT; the f32 stream
+     within PIX_TOL of the f32 batch decode), three training steps at r05's objective (rec, commit,
+     bit balance); then K1, K3 and K4 at the two new shapes as CUDA graphs
+     beside SDPA, aten and the bounds.
+Every line of a time or a memory size in phases 16 to 28 carries the
 card's name and power limit. The line before the last is a JSON summary
 of the kernels (`launches` on one step or call of the newest path that
 runs each, and the counts by path; the variant, and the kernel's, the
@@ -275,11 +292,24 @@ PATH_CASES = {
     "gvid_train": [(1024, 1024, 64, False), (65536, 16, 64, True),
                    (128, 4096, 32, False), (128, 1024, 32, False)],
     "eval_tokenizer": [(1024, 1024, 64, False), (65536, 16, 64, True)],
+    # Phase 27: `VIDEO_DISC_KWARGS`' two spatial attentions over 4 clips of
+    # 8 x 64x64 and, blurred, of 4 x 32x32.
+    "video_disc_train": [(128, 4096, 32, False), (64, 1024, 32, False)],
+    # Phase 28 at `ALT_BATCH` (4 x 8x8 token frames a clip): `ALT_ENC`'s
+    # `space_attn` and causal `time_attn`, in `tokenize` and in its
+    # training step (with remat: K1 twice); the decoders have none.
+    "alt_tokenize": [(64, 64, 64, False), (1024, 4, 64, True)],
+    "alt_decode": [],
+    "alt_stream": [],
+    "alt_train": [(64, 64, 64, False), (1024, 4, 64, True)],
 }
 # The paths this checkout added last (phases 16 to 18): their new shapes are
 # timed in phase 19.
 STAGE_PATHS = ("stage1_train", "stage1_eval", "action_train", "tokenize_with_actions",
                "dynamics_train", "generate", "eval_dynamics", "rollout_full")
+# The module library's paths (phases 27 and 28): their new shapes are timed
+# at the end of phase 28.
+MODULE_PATHS = ("video_disc_train", "alt_tokenize", "alt_decode", "alt_stream", "alt_train")
 # (N, C, d) of K2 on the paths: the rollout's prompt frame (256 tokens of a
 # 128-wide tokenizer), the Genie step's frozen tokenizer (4 x 16 frames of
 # 16x16 tokens, 64 wide), both with 10 bits, the session's prompt (one 8x8
@@ -312,6 +342,115 @@ def bf16_excess(got: torch.Tensor, ref: torch.Tensor) -> float:
     ref = ref.float()
     allow = (BF16_RTOL * ref.abs() + BF16_ATOL_RMS * ref.pow(2).mean().sqrt() + BF16_ATOL)
     return ((got.float() - ref).abs() / allow).max().item()
+
+
+# Phases 27 and 28: the module library that no repo YAML reaches, at the
+# widths of MAGVIT2 d=18 (`tokenizer_train_config()`, `configs/r05_tokenizer.yaml`).
+# The frame discriminator's widths as a `VideoDiscriminator` over whole 8 x
+# 64x64 clips (blur downsampling, attention and a conv FFN in both blocks),
+# and its compact twin at `tokenizer_compact_train_config()`'s widths.
+VIDEO_DISC_KWARGS = dict(inp_size=(8, 64, 64), model_dim=64, dim_mults=(1, 2, 4),
+                         down_step=(None, 2, 2), num_groups=8, use_attn=True, num_heads=4,
+                         dim_head=32)
+COMPACT_VIDEO_DISC_KWARGS = dict(inp_size=(4, 32, 32), model_dim=8, dim_mults=(1, 2, 4),
+                                 down_step=(None, 2, 2), num_groups=4, use_attn=True,
+                                 num_heads=2, dim_head=16)
+VIDEO_DISC_BATCH = (4, 8)  # clips x frames of 64x64, phase 12's batch
+ALT_BATCH = (2, 16)  # clips x frames of 64x64: 4 x 8x8 token frames a clip
+# What replaces the MAGVIT2 encoder's three `spacetime_downsample` stages
+# (time, space factors (1, 2), (2, 2), (2, 2)): a residual block that blurs,
+# one with strided causal convs padded by edge replication, and one that
+# blurs with an int `downsample`.
+ALT_ENC_STAGES = (
+    ((1, 2), {"downsample": [1, 2]}),
+    ((2, 2), {"downsample": [2, 2], "use_blur": False, "use_causal": True,
+              "pad_mode": "replicate"}),
+    ((2, 2), {"downsample": 2}),
+)
+ALT_ENC_HEADS = {"n_head": 8, "d_head": 64}
+_WIDTH_KEYS = ("in_channels", "out_channels", "num_channels", "d_inp", "d_out")
+
+
+def video_disc_train_config(cfg: dict, disc_kwargs: dict) -> dict:
+    """`TokenizerTrainModule` kwargs `cfg` with a video discriminator of
+    `disc_kwargs` judging whole clips."""
+    return dict(cfg, gan_discriminate="video", disc_kwargs=dict(disc_kwargs))
+
+
+def scale_widths(desc, div: int, keep=(3, 18)) -> tuple:
+    """A blueprint with every channel width divided by `div`, but those in
+    `keep` (the pixels' 3 and the codebook's 18)."""
+    return tuple((name, {k: v // div if k in _WIDTH_KEYS and v not in keep else v
+                         for k, v in kw.items()}) for name, kw in desc)
+
+
+def alt_encoder(enc_desc) -> tuple:
+    """`ALT_ENC` from a MAGVIT2 encoder: its `spacetime_downsample` stages
+    become the residual blocks of `ALT_ENC_STAGES` at the stage's width,
+    and a `space_attn` and a causal `time_attn` (`ALT_ENC_HEADS`, the
+    running width in and out) come before its last `group_norm`."""
+    out, stages = [], iter(ALT_ENC_STAGES)
+    last_norm = max((i for i, (name, _) in enumerate(enc_desc) if name == "group_norm"),
+                    default=-1)
+    for i, (name, kw) in enumerate(enc_desc):
+        if name == "spacetime_downsample":
+            factors, extra = next(stages)
+            assert (kw["time_factor"], kw["space_factor"]) == factors, (name, kw)
+            out.append(("video-residual", {"in_channels": kw["in_channels"], **extra}))
+            continue
+        if i == last_norm:
+            width = {"d_inp": kw["num_channels"], "d_out": kw["num_channels"]}
+            out += [("space_attn", {**ALT_ENC_HEADS, **width}),
+                    ("time_attn", {**ALT_ENC_HEADS, **width, "causal": True})]
+        out.append((name, dict(kw)))
+    assert next(stages, None) is None, "the encoder has fewer downsampling stages"
+    return tuple(out)
+
+
+def alt_stream_decoder(dec_desc) -> tuple:
+    """`ALT_STREAM_DEC` from a MAGVIT2 decoder: each
+    `depth2spacetime_upsample` of width C becomes a `depth2time_upsample`
+    (where its time factor is above 1), then a `depth2space_upsample`."""
+    out = []
+    for name, kw in dec_desc:
+        if name != "depth2spacetime_upsample":
+            out.append((name, dict(kw)))
+            continue
+        c, tf, sf = kw["in_channels"], kw.get("time_factor", 2), kw.get("space_factor", 2)
+        if tf > 1:
+            out.append(("depth2time_upsample", {"in_channels": c, "factor": tf}))
+        out.append(("depth2space_upsample", {"in_channels": c, "factor": sf}))
+    return tuple(out)
+
+
+def alt_tconv_decoder(dec_desc) -> tuple:
+    """`ALT_TCONV_DEC` from a MAGVIT2 decoder: each
+    `depth2spacetime_upsample` (tf, sf, C) becomes a 3x3x3
+    `causal-conv3d-transpose` C -> C of stride (tf, sf, sf)."""
+    return tuple(
+        ("causal-conv3d-transpose", {
+            "in_channels": kw["in_channels"], "out_channels": kw["in_channels"],
+            "kernel_size": 3,
+            "stride": [kw.get("time_factor", 2)] + [kw.get("space_factor", 2)] * 2})
+        if name == "depth2spacetime_upsample" else (name, dict(kw))
+        for name, kw in dec_desc)
+
+
+def alt_tokenizers(div: int = 1) -> dict:
+    """The tokenizer kwargs of phase 28 at the widths of MAGVIT2 d=18
+    divided by `div` (16: the compact twin, widths 8 to 32): `ALT_ENC`
+    with `ALT_STREAM_DEC` ("stream") and with `ALT_TCONV_DEC` ("tconv")."""
+    from open_genie_tpu_torch.models.blueprints import (
+        MAGVIT2_DEC_DESC,
+        MAGVIT2_ENC_DESC,
+        MAGVIT2_STREAM_DEC_DESC,
+    )
+
+    enc = alt_encoder(scale_widths(MAGVIT2_ENC_DESC, div))
+    return {"stream": dict(enc_desc=enc, d_codebook=18,
+                           dec_desc=alt_stream_decoder(scale_widths(MAGVIT2_STREAM_DEC_DESC, div))),
+            "tconv": dict(enc_desc=enc, d_codebook=18,
+                          dec_desc=alt_tconv_decoder(scale_widths(MAGVIT2_DEC_DESC, div)))}
 
 
 # The card's peaks (NVIDIA's H100 SXM data sheet, dense, at 700 W) for the
@@ -1432,12 +1571,13 @@ def phase_train_full_width(dev) -> dict:
     return counts, shapes
 
 
-def phase_compact_tokenizer_train(dev):
+def phase_compact_tokenizer_train(dev, cfg=None, label="compact tokenizer"):
     """One compact tokenizer training step on the card (K1, K3, K4 in the
     discriminator, K5/K6 for the 13-bit codebook's entropy) against the
     same step on the CPU (plain twins): same weights, video and frame
     indices, f32 with TF32 off. Loss, every gradient, the parameters after
-    AdamW."""
+    AdamW. `cfg`: `TokenizerTrainModule` kwargs (default
+    `tokenizer_compact_train_config()`)."""
     from open_genie_tpu_torch.models.configs import tokenizer_compact_train_config
     from open_genie_tpu_torch.train.losses import TokenizerTrainModule, frozen_param_mask
     from open_genie_tpu_torch.train.loop import make_optimizer
@@ -1447,7 +1587,7 @@ def phase_compact_tokenizer_train(dev):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True  # the GAN's two D passes cancel exactly
     g = torch.Generator().manual_seed(SEED + 11)
-    cfg = tokenizer_compact_train_config()
+    cfg = cfg or tokenizer_compact_train_config()
     cpu = init_weights(TokenizerTrainModule(**cfg), g)
     gpu = copy.deepcopy(cpu).to(dev)
     video = torch.rand(2, 4, 32, 32, 3, generator=g)
@@ -1469,10 +1609,10 @@ def phase_compact_tokenizer_train(dev):
     assert set(g_cpu) == set(g_gpu) and len(g_gpu) > 0
     g_err = max((g_gpu[n] - g_cpu[n]).abs().max().item() for n in g_cpu)
     p_err = max((p_gpu[n] - p_cpu[n]).abs().max().item() for n in p_cpu)
-    print(f"[compact tokenizer] loss CUDA {l_gpu:.6f} vs CPU {l_cpu:.6f}; max |d grad| "
+    print(f"[{label}] loss CUDA {l_gpu:.6f} vs CPU {l_cpu:.6f}; max |d grad| "
           f"{g_err:.3g} over {len(g_gpu)} gradients; max |d param| after AdamW {p_err:.3g}; "
           f"launches {counts}")
-    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu), "compact tokenizer loss differs"
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu), f"{label} loss differs"
     for n in g_cpu:
         torch.testing.assert_close(g_gpu[n], g_cpu[n], **PIX_TOL, msg=lambda m, n=n: f"{n}: {m}")
     assert p_err <= 2.1e-4, "parameters after the step differ"
@@ -1481,11 +1621,13 @@ def phase_compact_tokenizer_train(dev):
                                        "lfq_entropy_bwd"))
 
 
-def phase_tokenizer_train_full_width(dev) -> dict:
+def phase_tokenizer_train_full_width(dev, cfg=None, label="tokenizer train",
+                                     path="tokenizer_train") -> dict:
     """`tokenizer_train_config()` (the JAX benchmark's MAGVIT2 d=18
-    full-loss step) at batch 4 x 8 frames x 64x64, bf16 compute on f32
-    master weights, the benchmark's AdamW defaults, the VGG frozen; three
-    steps through `make_train_step`."""
+    full-loss step; or `cfg`) at batch 4 x 8 frames x 64x64, bf16 compute
+    on f32 master weights, the benchmark's AdamW defaults, the VGG frozen;
+    three checked steps through `make_train_step`, ten timed, one
+    profiled. Returns the launches and shapes of a step and its times."""
     from open_genie_tpu_torch.models.configs import tokenizer_train_config
     from open_genie_tpu_torch.modules.attention import Attention
     from open_genie_tpu_torch.modules.quantization import LookupFreeQuantization
@@ -1495,7 +1637,7 @@ def phase_tokenizer_train_full_width(dev) -> dict:
 
     torch.backends.cudnn.deterministic = True
     g = torch.Generator().manual_seed(SEED + 12)
-    module = init_weights(TokenizerTrainModule(**tokenizer_train_config()), g).to(dev)
+    module = init_weights(TokenizerTrainModule(**(cfg or tokenizer_train_config())), g).to(dev)
     frozen = frozen_param_mask(module, ("perc_crit",))
     opt = make_optimizer(module, frozen_mask=frozen)  # lr 1e-3, as bench.py's make_optimizer()
     step = make_train_step(module, opt, compute_dtype=torch.bfloat16)
@@ -1510,7 +1652,7 @@ def phase_tokenizer_train_full_width(dev) -> dict:
     expect = {"flash_attention_fwd": 3 * n_attn, "flash_attention_bwd_dkv": 3 * n_attn,
               "flash_attention_bwd_dq": 3 * n_attn, "lfq_head": 0,
               "lfq_entropy_fwd": n_lfq, "lfq_entropy_bwd": n_lfq}
-    print(f"[tokenizer train] {sum(p.numel() for p in module.parameters()) / 1e6:.1f}M "
+    print(f"[{label}] {sum(p.numel() for p in module.parameters()) / 1e6:.1f}M "
           f"parameters, {sum(p.numel() for p in opt.params) / 1e6:.1f}M trainable; "
           f"discriminator attentions {n_attn}, LFQ codebooks {n_lfq}")
 
@@ -1535,7 +1677,7 @@ def phase_tokenizer_train_full_width(dev) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         counts, shapes = _read_counts(), _read_shapes()
-        variants = _assert_path_kernels("tokenizer train", "tokenizer_train", show=i == 0)
+        variants = _assert_path_kernels(label, path, show=i == 0)
         assert all(variants[name]["mma"] == counts[name] for name in _FLASH)
         loss, norm = metrics["loss"].item(), metrics["grad_norm"].item()
         assert math.isfinite(loss) and math.isfinite(norm), "non-finite loss or grad_norm"
@@ -1544,7 +1686,7 @@ def phase_tokenizer_train_full_width(dev) -> dict:
         if i >= 3:
             continue
         parts = ", ".join(f"{k} {metrics[k].item():.4f}" for k in terms)
-        print(f"[tokenizer train] step {i}: loss {loss:.4f} ({parts}), grad_norm {norm:.4f}, "
+        print(f"[{label}] step {i}: loss {loss:.4f} ({parts}), grad_norm {norm:.4f}, "
               f"{times[-1] * 1e3:.1f} ms, launches {counts}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
@@ -1555,7 +1697,7 @@ def phase_tokenizer_train_full_width(dev) -> dict:
     trainable = [n for n in frozen if frozen[n]]
     zero = [n for n in trainable if nonzero.get(n, 0) == 0]
     n_disc = sum(n.startswith("gan_crit.") for n in trainable)
-    print(f"[tokenizer train] nonzero gradient in steps 0-2 on {len(trainable) - len(zero)}/"
+    print(f"[{label}] nonzero gradient in steps 0-2 on {len(trainable) - len(zero)}/"
           f"{len(trainable)} trainable parameters ({n_disc} of them the discriminator's); "
           f"{head_bias}: {nonzero.get(head_bias, 0)} nonzero entries")
     assert not set(zero) - {head_bias}, f"no gradient reached {zero}"
@@ -1564,12 +1706,12 @@ def phase_tokenizer_train_full_width(dev) -> dict:
     timed = sorted(t * 1e3 for t in times[3:])
     ms = statistics.median(timed)
     frames = video.shape[0] * video.shape[1]
-    print(f"[tokenizer train] VGG parameters bit-unchanged after {len(times)} steps; "
+    print(f"[{label}] VGG parameters bit-unchanged after {len(times)} steps; "
           f"{ms:.1f} ms per step, {frames / ms * 1e3:.1f} frames/s (median of steps 3-"
           f"{len(times) - 1}, min {timed[0]:.1f}, max {timed[-1]:.1f}; step 0 "
           f"{times[0] * 1e3:.1f} ms); peak memory {peak:.2f} GiB")
-    _profile_step("tokenizer train", lambda: step(video, generator=gen), ms)
-    return counts, shapes
+    _profile_step(label, lambda: step(video, generator=gen), ms)
+    return counts, shapes, {"ms": ms, "min_ms": timed[0], "max_ms": timed[-1], "peak_gib": peak}
 
 
 def _profile_step(label: str, run, step_ms: float, top: int = 10) -> None:
@@ -2092,13 +2234,14 @@ def phase_rollout_full(dev, smi: str) -> dict:
     return {**out, "equal_to_cached": same, "cached_ms": cached_ms}
 
 
-def phase_stage_shapes(dev, launches: dict) -> list:
-    """K1, and K3 and K4 where a training path of phases 16 to 18 launched
-    them, in bf16 at every shape that those paths brought and no earlier
-    path has, as CUDA graphs: beside PyTorch's flash forward (SDPA) and
-    aten's flash backward, the plain twins where one call holds at most
-    2^27 logits, the bounds and each path's launches of the shape
-    (`launches`: path -> kernel -> shape -> count, one step or one call)."""
+def phase_stage_shapes(dev, launches: dict, paths=STAGE_PATHS, tag="stage shapes") -> list:
+    """K1, and K3 and K4 where a training path of `paths` (phases 16 to 18,
+    or 27 and 28) launched them, in bf16 at every shape that those paths
+    brought and no other path has, as CUDA graphs: beside PyTorch's flash
+    forward (SDPA) and aten's flash backward, the plain twins where one
+    call holds at most 2^27 logits, the bounds and each path's launches of
+    the shape (`launches`: path -> kernel -> shape -> count, one step or
+    one call)."""
     from open_genie_tpu_torch.ops.kernels.flash_attention import (
         flash_attention,
         flash_attention_bwd_dkv,
@@ -2107,14 +2250,14 @@ def phase_stage_shapes(dev, launches: dict) -> list:
         flash_attention_plain,
     )
 
-    older = {c for path, cases in PATH_CASES.items() if path not in STAGE_PATHS for c in cases}
-    new = sorted({c for path in STAGE_PATHS for c in PATH_CASES[path]} - older)
+    older = {c for path, cases in PATH_CASES.items() if path not in paths for c in cases}
+    new = sorted({c for path in paths for c in PATH_CASES[path]} - older)
     g = torch.Generator(device=dev).manual_seed(SEED + 22)
     rows = []
     for case in new:
         bh, n, d, causal = case
         per_path = {path: [launches[path][name].get(case, 0) for name in _FLASH]
-                    for path in STAGE_PATHS if case in PATH_CASES[path]}
+                    for path in paths if case in PATH_CASES[path]}
         trained = any(c[1] for c in per_path.values())
         q, k, v, do = (torch.randn(bh, n, d, generator=g, device=dev, dtype=torch.bfloat16)
                        for _ in range(4))
@@ -2154,7 +2297,7 @@ def phase_stage_shapes(dev, launches: dict) -> list:
                      + (f", plain backward {ms['bwd plain']:.4f}" if small else "")
                      + f", bound K3 {row['K3']['bound_ms']:.5f} ({row['K3']['bound_by']}), "
                      f"K4 {row['K4']['bound_ms']:.5f} ({row['K4']['bound_by']})")
-        print(f"[stage shapes] bf16 (BH,N,D,causal)={case}, CUDA graphs: {text}; launches "
+        print(f"[{tag}] bf16 (BH,N,D,causal)={case}, CUDA graphs: {text}; launches "
               f"(K1, K3, K4) per step or call {per_path}")
         rows.append(row)
         del q, k, v, do, o, lse, fns
@@ -3108,6 +3251,206 @@ def phase_eval_genie_dynamics(dev, smi: str, work: Path, genie_cfg: str) -> dict
     return out
 
 
+# --------------------------------------------------------------------- #
+# Phases 27 and 28: the module library at MAGVIT2 d=18 width
+# --------------------------------------------------------------------- #
+
+def phase_video_disc(dev, smi: str, tok_train_ms: float) -> dict:
+    """Phase 27: the compact twin (`tokenizer_compact_train_config()` with
+    `COMPACT_VIDEO_DISC_KWARGS`) on the card against the CPU in f32, then
+    the full-loss MAGVIT2 d=18 step with `VIDEO_DISC_KWARGS` judging whole
+    clips, as phase 12 runs the frame discriminator's; then the blur's
+    grouped conv3d alone (`_blur_report`)."""
+    from open_genie_tpu_torch.models.configs import (
+        tokenizer_compact_train_config,
+        tokenizer_train_config,
+    )
+
+    phase_compact_tokenizer_train(
+        dev, video_disc_train_config(tokenizer_compact_train_config(),
+                                     COMPACT_VIDEO_DISC_KWARGS), "compact video disc")
+    counts, shapes, times = phase_tokenizer_train_full_width(
+        dev, video_disc_train_config(tokenizer_train_config(), VIDEO_DISC_KWARGS),
+        "video disc train", "video_disc_train")
+    print(f"[video disc train] {smi}: {times['ms']:.1f} ms per step "
+          f"with the video discriminator against {tok_train_ms:.1f} ms with the frame "
+          f"discriminator (phase 12, this run); peak memory {times['peak_gib']:.2f} GiB")
+    return {"launches": counts, "shapes": shapes, **times, "frame_disc_ms": tok_train_ms,
+            "blur": _blur_report(dev, smi)}
+
+
+def _blur_report(dev, smi: str) -> dict:
+    """The blur of `VIDEO_DISC_KWARGS`' second block (`blur_pool_3d`, a
+    grouped conv3d with one group per channel, stride 2) at its two bf16
+    inputs of a step, the main branch's 256 channels and the residual's
+    128: ms forward and forward + backward (CUDA events), and the kernels
+    one forward call launches. Three discriminator passes a step call
+    each once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from open_genie_tpu_torch.ops.resample import blur_pool_3d
+
+    b, t = VIDEO_DISC_BATCH
+    out = {}
+    for c in (256, 128):
+        x = torch.randn(b, t, 64, 64, c, device=dev, dtype=torch.bfloat16, requires_grad=True)
+        fwd = cuda_ms(lambda: blur_pool_3d(x, 3, 2, 2), iters=10)
+        both = cuda_ms(lambda: blur_pool_3d(x, 3, 2, 2).sum().backward(), iters=10)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            blur_pool_3d(x, 3, 2, 2)
+            torch.cuda.synchronize()
+        kernels = sum(e.count for e in prof.key_averages() if e.device_type.name == "CUDA")
+        out[c] = {"fwd_ms": fwd, "fwd_bwd_ms": both, "kernels_per_fwd": kernels}
+        print(f"[video disc blur] {smi}: blur_pool_3d (grouped conv3d, {c} groups) on "
+              f"{tuple(x.shape)} bf16: {fwd:.3f} ms forward, {both:.3f} ms forward + backward, "
+              f"{kernels} kernels a forward call")
+        del x
+    total = 3 * sum(v["fwd_bwd_ms"] for v in out.values())
+    print(f"[video disc blur] {smi}: 3 passes x (256 + 128 channels) forward + backward: "
+          f"about {total:.1f} ms of a step")
+    return {"by_channels": out, "per_step_ms": total}
+
+
+def _compact_alt_twins(dev) -> None:
+    """Phase 28's compact twins (`alt_tokenizers(16)`): the card's f32
+    tokens (K1, K2) equal the CPU's wherever every bit is decided, and both
+    decoders' pixels within PIX_TOL of the CPU's."""
+    from open_genie_tpu_torch.models.tokenizer import VideoTokenizer
+    from open_genie_tpu_torch.utils import init_weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(SEED + 27)
+    alt = alt_tokenizers(16)
+    cpu = {kind: init_weights(VideoTokenizer(**kw), g).eval() for kind, kw in alt.items()}
+    gpu = {kind: copy.deepcopy(m).to(dev) for kind, m in cpu.items()}
+    video = torch.rand(*ALT_BATCH, 64, 64, 3, generator=g)
+    _reset_counts()
+    _, tok_gpu = gpu["stream"].tokenize(video.to(dev))
+    launched = _read_counts()
+    _, tok_cpu = cpu["stream"].tokenize(video)
+    with torch.no_grad():
+        decided = (cpu["stream"].encode(video).abs() >= LFQ_UNDECIDED).all(-1)
+    tok_gpu = tok_gpu.cpu()
+    same = torch.equal(tok_gpu[decided], tok_cpu[decided])
+    errs = {}
+    for kind in alt:
+        pix_gpu = gpu[kind].decode_tokens(tok_cpu.to(dev)).cpu()
+        pix_cpu = cpu[kind].decode_tokens(tok_cpu)
+        errs[kind] = (pix_gpu - pix_cpu).abs().max().item()
+        torch.testing.assert_close(pix_gpu, pix_cpu, **PIX_TOL)
+    print(f"[compact alt] tokens {tuple(tok_cpu.shape)} equal CUDA vs CPU at the "
+          f"{int(decided.sum())}/{decided.numel()} decided positions: {same}; pixels max |d| "
+          f"stream {errs['stream']:.3g}, tconv {errs['tconv']:.3g}; launches K1 "
+          f"{launched['flash_attention_fwd']}, K2 {launched['lfq_head']}")
+    assert same, "CUDA tokens differ from the CPU's"
+    assert launched["flash_attention_fwd"] == 2 and launched["lfq_head"] == 1
+
+
+def phase_alt_resamplers(dev, smi: str) -> dict:
+    """Phase 28: `ALT_ENC` with `ALT_STREAM_DEC` and `ALT_TCONV_DEC` at
+    MAGVIT2 d=18 width on `ALT_BATCH` clips of 64x64 in bf16: tokenize
+    (K1 twice, K2 once), each decoder, the stream of the 4 token frames
+    (each streamed layer within `bf16_excess` of the batch decode's own
+    input, in f32 within STREAM_EXACT; the f32 stream against the f32
+    batch decode within PIX_TOL, its error printed), then r05's objective (rec, commit, bit balance; no GAN,
+    no VGG) through `make_train_step`."""
+    from open_genie_tpu_torch.models.configs import _repo_config
+    from open_genie_tpu_torch.models.tokenizer import VideoTokenizer
+    from open_genie_tpu_torch.train.losses import TokenizerTrainModule
+    from open_genie_tpu_torch.train.loop import make_optimizer, make_train_step
+    from open_genie_tpu_torch.utils import init_weights
+
+    _compact_alt_twins(dev)
+    torch.backends.cudnn.deterministic = True
+    g = torch.Generator().manual_seed(SEED + 28)
+    alt = alt_tokenizers(1)
+    toks = {kind: init_weights(VideoTokenizer(**kw), g).to(dev, torch.bfloat16).eval()
+            for kind, kw in alt.items()}
+    video = torch.rand(*ALT_BATCH, 64, 64, 3, generator=g).to(dev, torch.bfloat16)
+    none = dict.fromkeys(_counters(), 0)
+    out = {"launches": {}, "shapes": {}}
+
+    toks["stream"].tokenize(video)  # warm-up: cuDNN picks its algorithms
+    (_, idxs), run = _inference("alt tokenize", "alt_tokenize", lambda: toks["stream"].tokenize(
+        video), {**none, "flash_attention_fwd": 2, "lfq_head": 1}, smi)
+    k2 = _read_k2_shapes()
+    assert k2 == {(512, 512, 18): 1}, f"K2 launched at {k2}"
+    assert tuple(idxs.shape) == (ALT_BATCH[0], ALT_BATCH[1] // 4, 8, 8) and int(idxs.max()) < 2 ** 18
+    out["launches"]["alt_tokenize"], out["shapes"]["alt_tokenize"] = run["launches"], run["shapes"]
+    out["tokenize_ms"] = run["ms"]
+    for kind, tok in toks.items():
+        tok.decode_tokens(idxs)
+        rec, run = _inference(f"alt decode {kind}", "alt_decode",
+                              lambda tok=tok: tok.decode_tokens(idxs), none, smi)
+        assert tuple(rec.shape) == tuple(video.shape) and torch.isfinite(rec.float()).all()
+        out[f"decode_{kind}_ms"] = run["ms"]
+    out["launches"]["alt_decode"] = run["launches"]
+
+    stream = toks["stream"]
+    assert stream.stream_decodable()
+    b, t = idxs.shape[:2]
+    cache = stream.init_stream_cache(b, 8, 8, t)
+    _reset_counts()
+    frames, ms = [], []
+    for p in range(t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames.append(stream.decode_stream(idxs[:, p], cache, p)[0])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    assert _read_counts() == none
+    out["launches"]["alt_stream"] = _read_counts()
+    streamed = torch.cat(frames, 1)
+    batch = stream.decode_tokens(idxs)
+    worst = _stream_layers_forced(stream, idxs, bf16_excess)
+    tok32 = copy.deepcopy(stream).float()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cache32 = tok32.init_stream_cache(b, 8, 8, t)
+    stream32 = torch.cat([tok32.decode_stream(idxs[:, p], cache32, p)[0] for p in range(t)], 1)
+    batch32 = tok32.decode_tokens(idxs)
+    err32 = (stream32 - batch32).abs().max().item()
+    # Each f32 layer streamed on the batch decode's input to it within the
+    # JAX package's stream pin; end to end, 33 layers of cuDNN's per-shape
+    # algorithms (a token frame's chunk against the clip) within the stack
+    # bound, as phase 15's decoder.
+    f32 = _stream_layers_forced(tok32, idxs, lambda a, r: (
+        (a - r).abs() / (STREAM_EXACT["atol"] + STREAM_EXACT["rtol"] * r.abs())).max().item())
+    out["stream_ms"] = statistics.median(ms[1:])
+    print(f"[alt stream] {smi}: {t} token frames of {tuple(frames[0].shape)} pixels each, "
+          f"{out['stream_ms']:.1f} ms per token frame (median of frames 1-{t - 1}; frame 0 "
+          f"{ms[0]:.1f} ms); the streamed frames against the batch decode "
+          f"{bf16_excess(streamed, batch):.3g} of the bf16 limit (printed); each of the "
+          f"{len(worst)} layers streamed on the batch decode's input to it at most "
+          f"{max(worst):.3g} (layer {worst.index(max(worst))}), in f32 at most {max(f32):.3g} "
+          f"of atol 2e-5 + rtol 1e-5 (layer {f32.index(max(f32))}); f32 stream against f32 "
+          f"batch decode max |d| {err32:.3g} (rms {batch32.pow(2).mean().sqrt().item():.3g})")
+    assert tuple(streamed.shape) == tuple(video.shape) and max(worst) <= 1 and max(f32) <= 1
+    torch.testing.assert_close(stream32, batch32, **PIX_TOL)
+    out["stream_f32_max_err"] = err32
+    del tok32, cache32, stream32, batch32, toks
+
+    cfg = _repo_config("r05_tokenizer.yaml", "tokenizer").model.module_kwargs()
+    cfg["tokenizer"] = dict(cfg["tokenizer"], **alt["stream"])
+    module = init_weights(TokenizerTrainModule(**cfg), g).to(dev)
+    assert module.gan_crit is None and module.perc_crit is None
+    opt = make_optimizer(module, lr=5e-4)  # r05's peak lr
+    step = make_train_step(module, opt, compute_dtype=torch.bfloat16)
+    train = _train_steps("alt train", "alt_train", step, video.float(),
+                         {**none, "flash_attention_fwd": 4, "flash_attention_bwd_dkv": 2,
+                          "flash_attention_bwd_dq": 2},
+                         module, [n for n, _ in module.named_parameters()], 3, smi,
+                         generator=torch.Generator(device=dev).manual_seed(SEED + 29))
+    out["launches"]["alt_train"], out["shapes"]["alt_train"] = train["launches"], train["shapes"]
+    out["train_ms"], out["train_peak_gib"] = train["ms"], train["peak_gib"]
+    print(f"[alt] {smi}: tokenize {out['tokenize_ms']:.1f} ms, decode stream "
+          f"{out['decode_stream_ms']:.1f} ms, decode tconv {out['decode_tconv_ms']:.1f} ms, "
+          f"{out['stream_ms']:.1f} ms per streamed token frame, {out['train_ms']:.1f} ms per "
+          f"training step, batch {ALT_BATCH[0]} x {ALT_BATCH[1]} x 64x64")
+    return out
+
+
 def main() -> int:
     global SEED
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3132,7 +3475,7 @@ def main() -> int:
     train, train_shapes = phase_train_full_width(dev)
     k5, k6 = phase_lfq_entropy(dev)
     phase_compact_tokenizer_train(dev)
-    tok_train, tok_shapes = phase_tokenizer_train_full_width(dev)
+    tok_train, tok_shapes, tok_times = phase_tokenizer_train_full_width(dev)
     phase_backward_shapes(dev, {"train_step": train_shapes, "tokenizer_train": tok_shapes})
     phase_compact_serve(dev)
     serve = phase_serve_full_width(dev, device["smi"])
@@ -3158,6 +3501,14 @@ def main() -> int:
         evals = phase_eval_genie_dynamics(dev, device["smi"], work, genie_cfg)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    vdisc = phase_video_disc(dev, device["smi"], tok_times["ms"])
+    alt = phase_alt_resamplers(dev, device["smi"])
+    module_paths = {"video_disc_train": vdisc, **{
+        path: {"launches": alt["launches"][path], "shapes": alt["shapes"].get(path)}
+        for path in MODULE_PATHS if path != "video_disc_train"}}
+    shape_rows += phase_stage_shapes(
+        dev, {path: module_paths[path]["shapes"] or {name: {} for name in _FLASH}
+              for path in MODULE_PATHS}, MODULE_PATHS, "module shapes")
     cli_paths = {"gvid_train": gvid["launches"], "eval_tokenizer": eval_tok["launches"],
                  "generate_cli": gen["launches"], "play": gen["play"]["per_step"],
                  "eval_genie": evals["eval_genie"]["launches"],
@@ -3171,7 +3522,10 @@ def main() -> int:
         # of `cli train tokenizer` on tokenize.yaml, one clip of `cli
         # tokenize-data`, one step of `cli train dynamics` and of `cli train
         # tokenizer` on r05b.
-        by_path = {**{path: c[name] for path, c in cli_paths.items()},
+        by_path = {**{path: module_paths[path]["launches"][name] for path in
+                      ("video_disc_train", "alt_train", "alt_tokenize", "alt_stream",
+                       "alt_decode")},
+                   **{path: c[name] for path, c in cli_paths.items()},
                    "trainer": trainer["tokenizer"]["launches"][name],
                    "tokenize_data": trainer["dynamics"]["tokenize_data"]["launches"][name],
                    "trainer_dynamics": trainer["dynamics"]["launches"][name],
@@ -3180,9 +3534,8 @@ def main() -> int:
                    "serve": serve["launches"][name], "tokenizer_train": tok_train[name],
                    "train_step": train.get(name, 0), "rollout": rollout.get(name, 0)}
         # The newest path that runs the kernel, in the order above: one
-        # gvid-fed trainer step on tokenize.yaml for K1, K3 and K4, one
-        # `generate` call for K2, one MAGVIT2 tokenizer training step for K5
-        # and K6.
+        # MAGVIT2 step with the video discriminator for K1, K3, K4, K5 and
+        # K6, one `ALT_ENC` tokenize for K2.
         k["launches"] = next((c for c in by_path.values() if c > 0), 0)
         k["launches_by_path"] = by_path
         k["serve_launches"] = {"per_reset": serve["per_reset"][name],
@@ -3210,8 +3563,11 @@ def main() -> int:
                  "generate": {k: v for k, v in gen.items() if k not in ("launches", "play")},
                  "play": {k: gen["play"][k] for k in ("p50_ms", "p95_ms", "reset_ms")},
                  **{path: {"ms": evals[path]["ms"]} for path in evals}}
+    modules = {"video_disc_train": {k: v for k, v in vdisc.items()
+                                    if k not in ("launches", "shapes")},
+               "alt": {k: v for k, v in alt.items() if k not in ("launches", "shapes")}}
     print(json.dumps({"kernels": kernels, "serve": serve["times"], "stages": stages,
-                      "trainer": trainer_times, "cli": cli_times}))
+                      "trainer": trainer_times, "cli": cli_times, "modules": modules}))
     print(json.dumps({"ok": True, "device": {k: device[k] for k in ("platform", "kind", "count")}}))
     return 0
 

@@ -15,6 +15,7 @@ from torch import nn
 from open_genie_tpu_torch.modules import (
     blueprint_out_width,
     blueprint_st_factor,
+    blueprint_time_factor,
     parse_blueprint,
 )
 from open_genie_tpu_torch.modules.attention import SpaceTimeAttention
@@ -55,8 +56,8 @@ class LatentAction(nn.Module):
         # Widths: n_embd enters the encoder, whose output enters the decoder.
         enc_width = blueprint_out_width(enc_desc, n_embd)
         dec_width = blueprint_out_width(dec_desc, enc_width)
-        enc_fact = blueprint_st_factor(enc_desc, n_embd)
-        dec_fact = blueprint_st_factor(dec_desc, enc_width)
+        enc_fact = blueprint_st_factor(enc_desc)
+        dec_fact = blueprint_st_factor(dec_desc)
         assert abs(enc_fact * dec_fact - 1.0) < 1e-6, (
             "The product of the space-time up/down factors must be 1, got "
             f"{enc_fact} * {dec_fact}"
@@ -72,10 +73,7 @@ class LatentAction(nn.Module):
         # time axis through the encoder's space factor, so h' w' = h w *
         # st_factor / t_factor.
         h, w = cast_tuple(inp_shape, 2)
-        t_fact = 1.0
-        for layer in self.enc_layers:
-            t_fact *= getattr(layer, "t_factor", 1.0)
-        area = int(round(h * w * enc_fact / t_fact))
+        area = int(round(h * w * enc_fact / blueprint_time_factor(enc_desc)))
         self.to_act = nn.Linear(area * enc_width, d_codebook, bias=False)
         self.quant = LookupFreeQuantization(
             d_codebook, n_codebook, use_bias=lfq_bias,

@@ -18,13 +18,12 @@ exactly the batch `decode_tokens` output, in O(1) work per frame.
 """
 from __future__ import annotations
 
-from math import prod
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from open_genie_tpu_torch.modules import blueprint_layers, parse_blueprint
+from open_genie_tpu_torch.modules import blueprint_layers, blueprint_time_factor, parse_blueprint
 from open_genie_tpu_torch.modules.attention import SpaceTimeAttention, st_attn_cache
 from open_genie_tpu_torch.modules.quantization import LookupFreeQuantization
 from open_genie_tpu_torch.ops.kernels.lfq_head import lfq_head
@@ -119,8 +118,7 @@ class VideoTokenizer(nn.Module):
     def temporal_downsampling(self) -> int:
         """Input frames consumed per token frame: the shortest prompt that
         tokenizes to one token frame."""
-        factor = prod(getattr(layer, "t_factor", 1.0) for layer in self.enc_layers)
-        return max(1, int(round(1.0 / factor)))
+        return max(1, int(round(1.0 / blueprint_time_factor(self.enc_desc))))
 
     def head_fusable(self) -> bool:
         """The encoder ends in a 1x1x1 stride-1 `causal-conv3d` projecting
@@ -189,9 +187,9 @@ class VideoTokenizer(nn.Module):
             norms (`per_frame_norm` or `use_norm=False`);
           * `space-time_attn` with a single-conv FFN, before any time
             upsample (its KV decode takes one position a step);
-          * `depth2spacetime_upsample` (and the JAX package's
-            `depth2time_upsample` and `depth2space_upsample`, which the
-            port does not build yet);
+          * `depth2spacetime_upsample`, `depth2time_upsample` (each
+            multiplies the frames a token frame emits) and
+            `depth2space_upsample` (stateless);
           * `group_norm` / `adaptive_group_norm` with `per_frame`; only a
             per-frame adaptive norm may take the condition (`has_ext`);
           * parameter-free activations.
@@ -268,8 +266,10 @@ class VideoTokenizer(nn.Module):
             elif name == "depth2spacetime_upsample":
                 caches.append(zeros(layer.stream_state_len(), h, w, kw["in_channels"]))
                 h, w = h * layer.space_factor, w * layer.space_factor
-            else:
+            else:  # stateless and frame-local; a space shuffle scales the grid
                 caches.append(None)
+                if name == "depth2space_upsample":
+                    h, w = h * layer.factor, w * layer.factor
         return caches
 
     @torch.inference_mode()

@@ -1,8 +1,7 @@
 """Blueprint registry and parser (twin of `open_genie_tpu.modules`).
 
-Only the module names the rollout, the Genie joint training step and the
-MAGVIT2 tokenizer use are ported; every other name of the JAX registry
-raises an error saying so.
+Every name of the JAX package's registry resolves to its port; a name
+that is in neither raises `ValueError`.
 """
 from __future__ import annotations
 
@@ -13,13 +12,20 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from open_genie_tpu_torch.modules.attention import SpaceTimeAttention
-from open_genie_tpu_torch.modules.image import ImageResidualBlock, SpaceDownsample
+from open_genie_tpu_torch.modules.attention import (
+    SpaceTimeAttention,
+    SpatialAttention,
+    TemporalAttention,
+)
+from open_genie_tpu_torch.modules.image import BlurPooling2d, ImageResidualBlock, SpaceDownsample
 from open_genie_tpu_torch.modules.misc import ACTIVATIONS, Activation
 from open_genie_tpu_torch.modules.norm import AdaptiveGroupNorm, GroupNorm
 from open_genie_tpu_torch.modules.video import (
     CausalConv3d,
+    CausalConvTranspose3d,
     DepthToSpaceTimeUpsample,
+    DepthToSpaceUpsample,
+    DepthToTimeUpsample,
     SpaceTimeDownsample,
     SpaceTimeUpsample,
     VideoResidualBlock,
@@ -27,34 +33,32 @@ from open_genie_tpu_torch.modules.video import (
 from open_genie_tpu_torch.utils import Blueprint, cast_tuple
 
 _REGISTRY: Dict[str, Type[nn.Module]] = {
+    "space_attn": SpatialAttention,
+    "time_attn": TemporalAttention,
     "space-time_attn": SpaceTimeAttention,
+    "blur_pool": BlurPooling2d,
     "space_downsample": SpaceDownsample,
     "image-residual": ImageResidualBlock,
     "video-residual": VideoResidualBlock,
     "causal-conv3d": CausalConv3d,
-    "spacetime_downsample": SpaceTimeDownsample,
+    "causal-conv3d-transpose": CausalConvTranspose3d,
+    "depth2space_upsample": DepthToSpaceUpsample,
+    "depth2time_upsample": DepthToTimeUpsample,
     "depth2spacetime_upsample": DepthToSpaceTimeUpsample,
+    "spacetime_downsample": SpaceTimeDownsample,
     "spacetime_upsample": SpaceTimeUpsample,
     "group_norm": GroupNorm,
     "adaptive_group_norm": AdaptiveGroupNorm,
     **{name: Activation for name in ACTIVATIONS},
 }
-
-# Names the JAX package's registry resolves that this package does not yet.
-_NOT_PORTED = (
-    "space_attn", "time_attn", "blur_pool", "causal-conv3d-transpose",
-    "depth2space_upsample", "depth2time_upsample",
-)
+# Attentions whose input width defaults to the width entering them.
+_WIDTH_FROM_INPUT = ("space-time_attn", "space_attn", "time_attn")
 
 
 def get_module(name: str) -> Type[nn.Module]:
     """Resolve a registry name to a module class."""
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"module {name!r} is not ported to open_genie_tpu_torch yet"
-        )
     raise ValueError(f"Unknown module name: {name}")
 
 
@@ -89,41 +93,50 @@ _IN_WIDTH = ("in_channels", "inp_channel", "in_dim", "num_channels", "d_inp", "n
 _OUT_WIDTH = ("out_channels", "out_channel", "d_out", "n_embd")
 
 
-def _expand(blueprint: Blueprint, width: Optional[int]) -> Tuple[list, Optional[int]]:
-    """`([(name, kwargs, has_ext), ...], width)`: one entry per layer, with
-    `n_rep` expanded and the kwargs sanitized, and the channel width that
-    leaves the blueprint.
-
-    `width` is the width entering the blueprint (None where the caller
-    cannot know it). The running width follows each layer's declared input
-    width, then its declared output width (norms and activations keep it).
-    A `space-time_attn` that sets neither `d_inp` nor `n_embd` takes the
-    running width as `d_inp`, as the JAX package takes the width of its
-    traced input; where that width is unknown it raises `ValueError`.
-    """
-    layers = []
-    for pos, desc in enumerate(blueprint):
+def _layer_descs(blueprint: Blueprint):
+    """`(name, kwargs, has_ext)` per layer, `n_rep` expanded and the kwargs
+    sanitized."""
+    for desc in blueprint:
         name, kwargs = (desc, {}) if isinstance(desc, str) else desc
         kwargs = dict(kwargs)
         has_ext = bool(kwargs.pop("has_ext", False))
         n_rep = int(kwargs.pop("n_rep", 1))
         kwargs = _sanitize_kwargs(name, kwargs)
         for _ in range(n_rep):
-            kw = dict(kwargs)
-            width = next((kw[k] for k in _IN_WIDTH if kw.get(k) is not None), width)
-            out = width
+            yield name, dict(kwargs), has_ext
+
+
+def _expand(blueprint: Blueprint, width: Optional[int]) -> Tuple[list, Optional[int]]:
+    """`([(name, kwargs, has_ext), ...], width)`: one entry per layer (see
+    `_layer_descs`), and the channel width that leaves the blueprint.
+
+    `width` is the width entering the blueprint (None where the caller
+    cannot know it). The running width follows each layer's declared input
+    width, then its declared output width (norms, activations and blur
+    pooling keep it). A `space-time_attn` that sets neither `d_inp` nor
+    `n_embd`, or a `space_attn` / `time_attn` without `d_inp`, takes the
+    running width as `d_inp`, as the JAX package takes the width of its
+    traced input; where that width is unknown it raises `ValueError`
+    naming the layer.
+    """
+    layers = []
+    for pos, (name, kw, has_ext) in enumerate(_layer_descs(blueprint)):
+        width = next((kw[k] for k in _IN_WIDTH if kw.get(k) is not None), width)
+        out = width
+        if name in _WIDTH_FROM_INPUT:
+            if width is None:
+                raise ValueError(
+                    f"blueprint layer {pos} ({name}): the width entering it is "
+                    f"unknown; give it d_inp" + (" or n_embd" if name == "space-time_attn"
+                                                 else "")
+                )
+            if kw.get("d_inp") is None and kw.get("n_embd") is None:
+                kw["d_inp"] = width
             if name == "space-time_attn":
-                if width is None:
-                    raise ValueError(
-                        f"blueprint layer {pos} ({name}): the width entering it is "
-                        f"unknown; give it d_inp or n_embd"
-                    )
-                if kw.get("d_inp") is None and kw.get("n_embd") is None:
-                    kw["d_inp"] = width
                 out = (cast_tuple(kw.get("n_head", 8), 2)[1]
                        * cast_tuple(kw.get("d_head", 64), 2)[1])
-            width = next((kw[k] for k in _OUT_WIDTH if kw.get(k) is not None), out)
-            layers.append((name, kw, has_ext))
+        width = next((kw[k] for k in _OUT_WIDTH if kw.get(k) is not None), out)
+        layers.append((name, kw, has_ext))
     return layers, width
 
 
@@ -156,12 +169,27 @@ def blueprint_out_width(blueprint: Blueprint, width: Optional[int] = None) -> Op
     return _expand(blueprint, width)[1]
 
 
-def blueprint_st_factor(blueprint: Blueprint, width: Optional[int] = None) -> float:
-    """Space-time volume factor of a blueprint (the product of its
-    resamplers' `st_factor`), from modules built on the meta device."""
+def _blueprint_factor(blueprint: Blueprint, attr: str) -> float:
+    """The product over a blueprint's layers of `attr`, read from modules
+    built on the meta device, of the names whose class has it."""
     fact = 1.0
-    for name, kwargs, _ in _expand(blueprint, width)[0]:
+    for name, kwargs, _ in _layer_descs(blueprint):
+        cls = get_module(name)
+        if not hasattr(cls, attr):
+            continue
         with torch.device("meta"):
-            layer = get_module(name)(**kwargs)
-        fact *= getattr(layer, "st_factor", 1.0)
+            fact *= getattr(cls(**kwargs), attr)
     return fact
+
+
+def blueprint_st_factor(blueprint: Blueprint) -> float:
+    """Space-time volume factor of a blueprint (the product of its
+    resamplers' `st_factor`)."""
+    return _blueprint_factor(blueprint, "st_factor")
+
+
+def blueprint_time_factor(blueprint: Blueprint) -> float:
+    """Time-axis length factor of a blueprint (0.25 for an encoder that
+    compresses time 4 times), the product of its layers' `t_factor`: what
+    `VideoTokenizer.temporal_downsampling` reads."""
+    return _blueprint_factor(blueprint, "t_factor")

@@ -164,18 +164,25 @@ def _read_only_decode(q, k, v, k_buf, v_buf, cache_pos, scale):
     return attn.to(q.dtype)
 
 
-class SpatialAttention(nn.Module):
-    """Attention over the `H * W` grid of each frame of a `(B, T, H, W, C)`
-    video, batched over (B, T), or of each `(B, H, W, C)` image. An
-    optional `(B, H*W, key_dim)` condition cross-attends as keys and
-    values, repeated over time."""
+def _attn_width(name: str, d_inp: Optional[int]) -> int:
+    if d_inp is None:  # `parse_blueprint` fills it from the width entering the layer
+        raise ValueError(f"{name} needs its input width d_inp")
+    return d_inp
 
-    def __init__(self, n_head, d_head, d_inp, d_out=None, key_dim=None,
-                 bias=False, embed=True, scale=None, dropout=0.0):
+
+class SpatialAttention(nn.Module):
+    """Registry `space_attn`: attention over the `H * W` grid of each frame
+    of a `(B, T, H, W, C)` video, batched over (B, T), or of each `(B, H,
+    W, C)` image. An optional `(B, H*W, key_dim)` condition cross-attends
+    as keys and values, repeated over time. Not causal unless `causal`."""
+
+    def __init__(self, n_head, d_head, d_inp=None, d_out=None, key_dim=None,
+                 bias=False, embed=True, scale=None, causal=False, dropout=0.0):
         super().__init__()
         self.attn = Attention(
-            n_head, d_head, d_inp, d_out, key_dim=key_dim, bias=bias,
-            scale=scale, dropout=dropout, rope_kind="2d" if embed else None,
+            n_head, d_head, _attn_width("SpatialAttention", d_inp), d_out, key_dim=key_dim,
+            bias=bias, scale=scale, causal=causal, dropout=dropout,
+            rope_kind="2d" if embed else None,
         )
 
     def forward(self, video: torch.Tensor, cond: Optional[torch.Tensor] = None,
@@ -190,17 +197,18 @@ class SpatialAttention(nn.Module):
 
 
 class TemporalAttention(nn.Module):
-    """Causal attention over time, batched over (B, H, W) pixel tubes. An
-    optional `(B, T, key_dim)` condition cross-attends as keys and values,
-    repeated over space (how latent actions condition the latent-action
-    decoder)."""
+    """Registry `time_attn`: attention over time, batched over (B, H, W)
+    pixel tubes; causal only with `causal` (the JAX package's default is
+    not; the space-time block passes True). An optional `(B, T, key_dim)`
+    condition cross-attends as keys and values, repeated over space (how
+    latent actions condition the latent-action decoder)."""
 
-    def __init__(self, n_head, d_head, d_inp, d_out=None, key_dim=None,
-                 bias=False, embed=True, scale=None, dropout=0.0):
+    def __init__(self, n_head, d_head, d_inp=None, d_out=None, key_dim=None,
+                 bias=False, embed=True, scale=None, causal=False, dropout=0.0):
         super().__init__()
         self.attn = Attention(
-            n_head, d_head, d_inp, d_out, key_dim=key_dim, bias=bias,
-            scale=scale, causal=True, dropout=dropout,
+            n_head, d_head, _attn_width("TemporalAttention", d_inp), d_out, key_dim=key_dim,
+            bias=bias, scale=scale, causal=causal, dropout=dropout,
             rope_kind="1d" if embed else None,
         )
 
@@ -279,15 +287,15 @@ class SpaceTimeAttention(nn.Module):
         self.hid_dim = hid_dim
         self.space_attn = SpatialAttention(
             n_head[0], d_head[0], d_inp, space_hid, bias=bias, embed=embed[0],
-            scale=scale, dropout=dropout, **dict(space_attn_kw or {}),
+            scale=scale, causal=False, dropout=dropout, **dict(space_attn_kw or {}),
         )
         self.temp_attn = TemporalAttention(
             n_head[1], d_head[1], space_hid, time_hid, bias=bias, embed=embed[1],
-            scale=scale, dropout=dropout, **dict(time_attn_kw or {}),
+            scale=scale, causal=True, dropout=dropout, **dict(time_attn_kw or {}),
         )
         self.ffn = ForwardBlock(
-            time_hid, d_out, hid_dim, num_groups=n_head[1], use_bias=bias,
-            kernel_size=kernel_size,
+            time_hid, d_out, hid_dim, block="conv3d", num_groups=n_head[1], use_bias=bias,
+            kernel_size=kernel_size, causal_time=True,
         )
         skips = (("space_skip", d_inp, space_hid), ("time_skip", space_hid, time_hid),
                  ("ffn_skip", time_hid, d_out))

@@ -1,7 +1,7 @@
 """Image modules on channels-last `(B, H, W, C)` (twin of `open_genie_tpu.modules.image`).
 
 Used by the frame discriminator. GroupNorm is flax's default (eps 1e-6),
-computed in f32. Blur pooling is not ported yet.
+computed in f32.
 """
 from __future__ import annotations
 
@@ -13,10 +13,23 @@ from torch import nn
 
 from open_genie_tpu_torch.modules.norm import group_norm
 from open_genie_tpu_torch.ops.conv import conv2d_cl
-from open_genie_tpu_torch.ops.resample import space_to_depth
+from open_genie_tpu_torch.ops.resample import blur_pool_2d, space_to_depth
 from open_genie_tpu_torch.utils import cast_tuple, default
 
 IntOr2 = Union[int, Tuple[int, int]]
+
+
+class BlurPooling2d(nn.Module):
+    """Registry `blur_pool`: anti-aliased strided downsample of `(B, H, W,
+    C)` images by a binomial kernel (`ops.resample.blur_pool_2d`); no
+    parameters, `num_groups` taken and ignored as in the JAX package."""
+
+    def __init__(self, kernel_size: IntOr2 = 3, stride: IntOr2 = 2, num_groups: int = 1):
+        super().__init__()
+        self.kernel_size, self.stride = kernel_size, stride
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return blur_pool_2d(x, self.kernel_size, self.stride)
 
 
 class SpaceDownsample(nn.Module):

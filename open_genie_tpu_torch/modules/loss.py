@@ -2,8 +2,9 @@
 
 Both compare a per-video subset of frames, `idxs` `(B, K)` frame indices
 shared by the reconstruction and the input (`utils.random_frame_idxs`
-draws them; the parity tests feed the ones JAX drew). Losses are taken in
-f32.
+draws them; the parity tests feed the ones JAX drew), but for a GAN loss
+that judges whole clips (`discriminate="video"`), which ignores them.
+Losses are taken in f32.
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from open_genie_tpu_torch.modules.discriminator import FrameDiscriminator
+from open_genie_tpu_torch.modules.discriminator import FrameDiscriminator, VideoDiscriminator
 from open_genie_tpu_torch.modules.vgg import VGG16Features
 from open_genie_tpu_torch.utils import pick_frames
 
@@ -42,7 +43,9 @@ class PerceptualLoss(nn.Module):
 
 
 class GANLoss(nn.Module):
-    """Hinge GAN loss around a frame discriminator.
+    """Hinge GAN loss around a frame discriminator (`discriminate="frames"`,
+    on the picked frames) or a video discriminator (`"video"`, on the whole
+    clips; the default `inp_size` is `(16, 64, 64)`).
 
     generator: `-mean(D(fake))`, written `-mean(d_f - d_fs + sg(d_fs))` with
     `d_f = D(fake)`, `d_fs = D(sg(fake))`: the same value, the generator's
@@ -54,16 +57,22 @@ class GANLoss(nn.Module):
     def __init__(self, discriminate: str = "frames", num_frames: int = 4,
                  disc_kwargs: Optional[dict] = None):
         super().__init__()
-        if discriminate != "frames":
-            raise NotImplementedError(f"GANLoss discriminate={discriminate!r} is not ported yet")
+        if discriminate not in ("frames", "video"):
+            raise ValueError(
+                'Invalid discriminator type. Must be either "frames" or "video".')
         kwargs = {k: tuple(v) if isinstance(v, list) else v
                   for k, v in dict(disc_kwargs or {}).items()}
-        kwargs.setdefault("inp_size", (64, 64))
-        self.num_frames = num_frames
-        self.disc = FrameDiscriminator(**kwargs)
+        self.discriminate, self.num_frames = discriminate, num_frames
+        if discriminate == "frames":
+            kwargs.setdefault("inp_size", (64, 64))
+            self.disc = FrameDiscriminator(**kwargs)
+        else:
+            kwargs.setdefault("inp_size", (16, 64, 64))
+            self.disc = VideoDiscriminator(**kwargs)
 
-    @staticmethod
-    def examples(rec_video, inp_video, idxs):
+    def examples(self, rec_video, inp_video, idxs):
+        if self.discriminate == "video":
+            return rec_video, inp_video
         return pick_frames(rec_video, idxs), pick_frames(inp_video, idxs)
 
     def forward(self, rec_video: torch.Tensor, inp_video: torch.Tensor, idxs: torch.Tensor,

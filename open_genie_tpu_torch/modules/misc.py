@@ -1,12 +1,14 @@
 """ForwardBlock (the FFN of the space-time block and of the discriminator)
 and the parameter-free activations.
 
-Twin of `open_genie_tpu.modules.misc`. `ForwardBlock` is ported in its two
-forms the port builds: `block='conv3d'` with `causal_time=True` (the
-space-time attention block's: per-frame GroupNorm, then causal conv3d
-layers) and `block='conv2d'` (the frame discriminator's: GroupNorm over the
-image, then 2-D convs). tanh-GELU between the convs, GroupNorm eps 1e-6
-(flax's default).
+Twin of `open_genie_tpu.modules.misc`. `ForwardBlock` takes the JAX
+package's arguments and defaults: `block` `'dense'` (Linear layers over the
+last axis), `'conv2d'` (channels-last images) or `'conv3d'` (channels-last
+video). With `causal_time` a conv3d block normalises each frame on its own
+and pads time on the left only (the space-time attention block's FFN);
+without it GroupNorm pools over every axis but the batch and every pad is
+symmetric (`(k - 1) // 2`). tanh-GELU between the layers (and after the
+last with `last_act`), GroupNorm eps 1e-6 (flax's default).
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from open_genie_tpu_torch.modules.norm import group_norm
-from open_genie_tpu_torch.ops.conv import causal_conv3d, conv2d_cl
+from open_genie_tpu_torch.ops.conv import causal_conv3d, conv2d_cl, conv3d_cl
 from open_genie_tpu_torch.utils import cast_tuple, default
 
 ACTIVATIONS = {
@@ -57,47 +59,56 @@ class Activation(nn.Module):
 
 
 class ForwardBlock(nn.Module):
-    """GroupNorm -> conv (-> tanh-GELU -> conv ...), on channels-last
-    `(B, T, H, W, C)` video (`block='conv3d'`, causal in time) or `(B, H, W,
-    C)` images (`block='conv2d'`)."""
+    """GroupNorm -> (layer -> tanh-GELU) chain, the GELU after the last
+    layer only with `last_act`; `hid_dim` an int, a tuple or None (no
+    hidden layer)."""
 
     def __init__(
         self,
         in_dim: int,
         out_dim: Optional[int] = None,
-        hid_dim: Optional[Union[int, Tuple[int, ...]]] = None,
+        hid_dim: Optional[Union[int, Tuple[int, ...]]] = 256,
+        block: str = "dense",
         num_groups: int = 1,
+        last_act: bool = False,
         use_bias: bool = True,
-        kernel_size: int = 3,
-        block: str = "conv3d",
+        kernel_size: int = 1,
+        causal_time: bool = False,
     ):
         super().__init__()
-        if block not in ("conv3d", "conv2d"):
-            raise NotImplementedError(f"ForwardBlock block={block!r} is not ported yet")
         hid = (hid_dim,) if isinstance(hid_dim, int) else tuple(default(hid_dim, ()))
         dims = (in_dim,) + hid + (default(out_dim, in_dim),)
-        self.block = block
-        self.num_groups = num_groups
+        self.block, self.num_groups, self.last_act = block, num_groups, last_act
+        self.causal = block == "conv3d" and causal_time
         self.n_blocks = len(dims) - 1
         self.norm = nn.GroupNorm(num_groups, in_dim, eps=1e-6)
-        conv, nd = (nn.Conv3d, 3) if block == "conv3d" else (nn.Conv2d, 2)
-        self.padding = tuple((k - 1) // 2 for k in cast_tuple(kernel_size, nd))
+        if block == "dense":
+            layer = lambda i, o: nn.Linear(i, o, bias=use_bias)  # noqa: E731
+        elif block in ("conv2d", "conv3d"):
+            nd = 2 if block == "conv2d" else 3
+            k = cast_tuple(kernel_size, nd)
+            self.padding = tuple((kk - 1) // 2 for kk in k)
+            conv = nn.Conv2d if nd == 2 else nn.Conv3d
+            layer = lambda i, o: conv(i, o, k, bias=use_bias)  # noqa: E731
+        else:
+            raise ValueError(f"ForwardBlock block={block!r} is not dense, conv2d or conv3d")
         for i in range(self.n_blocks):
-            self.add_module(
-                f"block_{i}",
-                conv(dims[i], dims[i + 1], cast_tuple(kernel_size, nd), bias=use_bias),
-            )
+            self.add_module(f"block_{i}", layer(dims[i], dims[i + 1]))
+
+    def _layer(self, layer: nn.Module, h: torch.Tensor) -> torch.Tensor:
+        if self.block == "dense":
+            return layer(h)
+        if self.block == "conv2d":
+            return conv2d_cl(h, layer.weight, layer.bias, padding=self.padding)
+        if self.causal:
+            return causal_conv3d(h, layer.weight, layer.bias, space_padding=self.padding[1:])
+        return conv3d_cl(h, layer.weight, layer.bias, padding=self.padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        video = self.block == "conv3d"
         h = group_norm(x, self.norm.weight, self.norm.bias, self.num_groups, self.norm.eps,
-                       per_frame=video)
+                       per_frame=self.causal)
         for i in range(self.n_blocks):
-            conv = getattr(self, f"block_{i}")
-            if video:
-                h = causal_conv3d(h, conv.weight, conv.bias)
-            else:
-                h = conv2d_cl(h, conv.weight, conv.bias, padding=self.padding)
-            if i < self.n_blocks - 1:
+            h = self._layer(getattr(self, f"block_{i}"), h)
+            if i < self.n_blocks - 1 or self.last_act:
                 h = ACTIVATIONS["gelu"](h)
         return h

@@ -20,8 +20,9 @@ from open_genie_tpu_torch.utils import random_frame_idxs
 
 class TokenizerTrainModule(nn.Module):
     """VideoTokenizer plus its training loss: reconstruction MSE, hinge GAN
-    on picked frames (frame discriminator), VGG16 perceptual loss on picked
-    frames, and the LFQ loss, every term weighted into the total.
+    on picked frames (frame discriminator) or on whole clips
+    (`gan_discriminate="video"`), VGG16 perceptual loss on picked frames,
+    and the LFQ loss, every term weighted into the total.
 
     Freeze the VGG in the optimizer with `frozen_param_mask(module,
     ("perc_crit",))`. The GAN's generator and discriminator terms share one
@@ -78,7 +79,10 @@ class TokenizerTrainModule(nn.Module):
                 raise ValueError("TokenizerTrainModule needs frame indices or a Generator")
             return random_frame_idxs(generator, b, t, k, video.device)
 
-        perc_idxs, gan_idxs = idxs(perc_idxs), idxs(gan_idxs)
+        perc_idxs = idxs(perc_idxs)
+        # A video discriminator judges whole clips: no frames to draw.
+        video_gan = self.gan_crit is not None and self.gan_crit.discriminate == "video"
+        gan_idxs = None if video_gan else idxs(gan_idxs)
         rec, out = self.model(video, beta=beta, train=train, entropy_scale=entropy_scale,
                               bit_balance_scale=bit_balance_scale)
         rec_loss = ((rec.float() - video.float()) ** 2).mean()

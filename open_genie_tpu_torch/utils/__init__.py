@@ -26,6 +26,25 @@ def cast_tuple(val, length: int) -> tuple:
     return (val,) * length
 
 
+def enlarge_as(src: torch.Tensor, other: torch.Tensor) -> torch.Tensor:
+    """`src` with singleton axes appended on the right up to `other`'s rank."""
+    return src.reshape(*src.shape, *(1,) * (other.dim() - src.dim()))
+
+
+def enc2dec_name(name: str) -> str:
+    return name.replace("downsample", "upsample")
+
+
+def to_channels_last(video: torch.Tensor) -> torch.Tensor:
+    """`(B, C, T, H, W)` -> `(B, T, H, W, C)`."""
+    return video.permute(0, 2, 3, 4, 1)
+
+
+def to_channels_first(video: torch.Tensor) -> torch.Tensor:
+    """`(B, T, H, W, C)` -> `(B, C, T, H, W)`."""
+    return video.permute(0, 4, 1, 2, 3)
+
+
 def last_out_channels(blueprint: Blueprint) -> Optional[int]:
     """Last explicit output width in a blueprint (an encoder's output)."""
     out = None

@@ -72,7 +72,7 @@ def test_cross_attention():
 def test_temporal_and_spatial_cross_attention():
     video = _rand(3, 2, 4, 3, 3, 16)
     _compare(jatt.TemporalAttention(n_head=2, d_head=16, key_dim=8, causal=True),
-             tatt.TemporalAttention(2, 16, 16, key_dim=8),
+             tatt.TemporalAttention(2, 16, 16, key_dim=8, causal=True),
              [video, _rand(4, 2, 4, 8)], STACK_TOL)
     _compare(jatt.SpatialAttention(n_head=2, d_head=16, key_dim=8),
              tatt.SpatialAttention(2, 16, 16, key_dim=8),

@@ -124,7 +124,8 @@ def test_forward_block(hid_dim):
         in_dim=8, out_dim=6, hid_dim=hid_dim, block="conv3d", num_groups=2,
         use_bias=True, kernel_size=3, causal_time=True,
     )
-    tmod = tmisc.ForwardBlock(8, 6, hid_dim, num_groups=2, use_bias=True, kernel_size=3)
+    tmod = tmisc.ForwardBlock(8, 6, hid_dim, block="conv3d", num_groups=2, use_bias=True,
+                              kernel_size=3, causal_time=True)
     params = _port(jmod, tmod, x)
     ref = jmod.apply({"params": params}, x)
     with torch.no_grad():
@@ -253,10 +254,15 @@ def test_serve_config_equals_jax_side():
 
 
 def test_unported_module_names_raise():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_module("blur_pool")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        parse_blueprint((("depth2space_upsample", {"in_channels": 8}),))
+    """No name of the JAX registry is left unported: each resolves, and
+    builds from a blueprint; only a name in neither registry raises."""
+    from open_genie_tpu.modules import _REGISTRY as JAX_REGISTRY
+
+    for name in JAX_REGISTRY:
+        assert get_module(name).__name__ == JAX_REGISTRY[name].__name__, name
+    layers, _ = parse_blueprint((("depth2space_upsample", {"in_channels": 8}),
+                                 ("blur_pool", {})))
+    assert [type(m).__name__ for m in layers] == ["DepthToSpaceUpsample", "BlurPooling2d"]
     with pytest.raises(ValueError, match="Unknown module name"):
         get_module("no-such-module")
     layers, ext = parse_blueprint(

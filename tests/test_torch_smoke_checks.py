@@ -237,3 +237,58 @@ def test_native_epoch_check_catches_a_wrong_or_missing_batch(tmp_path):
     for bad in (Swapped, Short):
         with pytest.raises(AssertionError):
             chip_smoke.native_epoch_matches(bad(ds, 2, seed=1), ds)
+
+
+def test_alt_blueprints_are_the_stock_ones_with_the_new_modules():
+    """Phase 28's blueprints from MAGVIT2 d=18's: the encoder's three
+    downsampling stages become residual blocks (a blur of (1, 2), strided
+    causal convs padded by edge replication, a blur of an int 2), with a
+    spatial and a causal temporal attention at 512 before its last norm;
+    the decoders swap each joint upsampler for depth-to-time then
+    depth-to-space, or for a 3x3x3 causal transposed conv. Everything else
+    is the stock blueprint's."""
+    from open_genie_tpu_torch.models import blueprints as bp
+
+    enc = chip_smoke.alt_encoder(bp.MAGVIT2_ENC_DESC)
+    new = [d for d in enc if d not in bp.MAGVIT2_ENC_DESC]
+    assert new == [
+        ("video-residual", {"in_channels": 128, "downsample": [1, 2]}),
+        ("video-residual", {"in_channels": 256, "downsample": [2, 2], "use_blur": False,
+                            "use_causal": True, "pad_mode": "replicate"}),
+        ("video-residual", {"in_channels": 256, "downsample": 2}),
+        ("space_attn", {"n_head": 8, "d_head": 64, "d_inp": 512, "d_out": 512}),
+        ("time_attn", {"n_head": 8, "d_head": 64, "d_inp": 512, "d_out": 512, "causal": True}),
+    ]
+    assert [d for d in bp.MAGVIT2_ENC_DESC if d[0] != "spacetime_downsample"] == [
+        d for d in enc if d[0] not in ("space_attn", "time_attn") and d not in new[:3]]
+    assert enc[-4][0] == "time_attn" and enc[-3][0] == "group_norm"
+
+    stream = chip_smoke.alt_stream_decoder(bp.MAGVIT2_STREAM_DEC_DESC)
+    assert [d for d in stream if "upsample" in d[0]] == [
+        ("depth2time_upsample", {"in_channels": 512, "factor": 2}),
+        ("depth2space_upsample", {"in_channels": 512, "factor": 2}),
+        ("depth2time_upsample", {"in_channels": 256, "factor": 2}),
+        ("depth2space_upsample", {"in_channels": 256, "factor": 2}),
+        ("depth2space_upsample", {"in_channels": 256, "factor": 2})]
+    tconv = chip_smoke.alt_tconv_decoder(bp.MAGVIT2_DEC_DESC)
+    assert [d[1]["stride"] for d in tconv if d[0] == "causal-conv3d-transpose"] == [
+        [2, 2, 2], [2, 2, 2], [1, 2, 2]]
+    for alt, stock in ((stream, bp.MAGVIT2_STREAM_DEC_DESC), (tconv, bp.MAGVIT2_DEC_DESC)):
+        assert [d for d in alt if "upsample" not in d[0] and "transpose" not in d[0]] == [
+            d for d in stock if d[0] != "depth2spacetime_upsample"]
+    with pytest.raises(AssertionError, match="fewer downsampling stages"):
+        chip_smoke.alt_encoder(bp.MAGVIT2_ENC_DESC[:3])
+
+
+def test_compact_twins_divide_every_width_but_pixels_and_codes():
+    compact = chip_smoke.alt_tokenizers(16)
+    widths = {kw[k] for desc in (compact["stream"]["enc_desc"], compact["tconv"]["dec_desc"])
+              for _, kw in desc for k in ("in_channels", "out_channels", "num_channels",
+                                          "d_inp", "d_out") if k in kw}
+    assert widths == {3, 8, 16, 18, 32}
+    assert chip_smoke.scale_widths((("causal-conv3d", {"in_channels": 3, "out_channels": 128,
+                                                       "kernel_size": 3}),), 16) == (
+        ("causal-conv3d", {"in_channels": 3, "out_channels": 8, "kernel_size": 3}),)
+    cfg = chip_smoke.video_disc_train_config({"gan_discriminate": "frames", "disc_kwargs": {}},
+                                             chip_smoke.VIDEO_DISC_KWARGS)
+    assert cfg["gan_discriminate"] == "video" and cfg["disc_kwargs"]["inp_size"] == (8, 64, 64)

@@ -141,8 +141,11 @@ def test_video_residual_block(kw):
     eps 1e-6 pooled over T, H, W; and the causal per-frame option."""
     jm = jvid.VideoResidualBlock(**kw)
     _compare(jm, VideoResidualBlock(**kw), [_rand(5, 2, 3, 6, 6, 8)], OP_TOL)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        VideoResidualBlock(8, downsample=2)
+    # The downsampling branch builds now (tests/test_torch_module_library.py
+    # holds it to JAX): a blur on both branches, no parameters of its own.
+    down = VideoResidualBlock(8, downsample=2)
+    assert down(torch.from_numpy(_rand(5, 2, 4, 6, 6, 8))).shape == (2, 2, 3, 3, 8)
+    assert set(down.state_dict()) == set(VideoResidualBlock(8).state_dict())
 
 
 def test_space_to_depth():
