@@ -166,7 +166,23 @@ Phases, in order (any failure raises and the exit code is non-zero):
      within PIX_TOL of the f32 batch decode), three training steps at r05's objective (rec, commit,
      bit balance); then K1, K3 and K4 at the two new shapes as CUDA graphs
      beside SDPA, aten and the bounds.
-Every line of a time or a memory size in phases 16 to 28 carries the
+Phase 29 (`open_genie_tpu_torch/parallel/`): 29a, the distributed step
+on a one-rank NCCL group at full width, phase 12's MAGVIT2 step and phase
+9's Genie step: loss, every metric, every applied gradient and every
+parameter after the step bit-identical to the bare step's (else the first
+that differs is named); ms per step beside the bare step's, the bytes of
+gradient all-reduced a step, peak memory. 29b, two ranks on the one card
+over gloo, each a process of this script (`--dp-rank-of`): K5/K6 at (512,
+18) split 256 + 256, the all-reduced q and the gradient against K5/K6 over
+all 512 rows and within phase 10's float64-sweep bound; `cli train
+tokenizer` on a copy of tokenize.yaml with `trainer.n_data: 2` (f32, lr
+1e-4, 6 steps) against one process on the same global batches with the
+same frame picks, losses and parameters within PIX_TOL; one checkpoint
+directory, written by rank 0 alone; a run resumed at step 3 ending
+bit-identical to the uninterrupted one; the ranks' parameters bit-equal;
+K1, K3 and K4 in f32 at the ranks' shapes held to their twins; ms per step
+on each rank beside the one-process step.
+Every line of a time or a memory size in phases 16 to 29 carries the
 card's name and power limit. The line before the last is a JSON summary
 of the kernels (`launches` on one step or call of the newest path that
 runs each, and the counts by path; the variant, and the kernel's, the
@@ -2696,7 +2712,7 @@ def phase_trainer_r05b(dev, smi: str, work: Path) -> dict:
             scales.append(kwargs.get("bit_balance_scale", 1.0))
         return forward(module, video, *args, **kwargs)
 
-    def watched_step(opt):
+    def watched_step(opt, *args, **kwargs):
         # A few parameters (their first 4096 values) and their EMA after
         # each update; the update's parameters before it.
         names = [n for n, p in opt.named if p.dim() > 1][:2] + [opt.named[-1][0]]
@@ -2704,7 +2720,7 @@ def phase_trainer_r05b(dev, smi: str, work: Path) -> dict:
         params = dict(opt.named)
         before = {n: pick(params[n]) for n in names}
         ema_before = {n: pick(opt.ema[n]) for n in names}
-        norm = opt_step(opt)
+        norm = opt_step(opt, *args, **kwargs)
         trace.append({"before": before, "ema_before": ema_before,
                       "after": {n: pick(params[n]) for n in names},
                       "ema": {n: pick(opt.ema[n]) for n in names}})
@@ -3451,12 +3467,470 @@ def phase_alt_resamplers(dev, smi: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------- #
+# Phase 29: data-parallel training (`open_genie_tpu_torch/parallel/`)
+# --------------------------------------------------------------------- #
+
+DP_STEPS, DP_RESUME_AT, DP_TIMED_STEPS = 6, 3, 4
+# 29a's clips x frames of 64x64: phase 12's MAGVIT2 batch, phase 9's Genie.
+DP_TOK_BATCH, DP_GENIE_BATCH = (4, 8, 64, 64, 3), (4, 16, 64, 64, 3)
+# 29b's copy of tokenize.yaml: at its 1e-3, and at 1e-4, the run diverges
+# within a few steps (loss 19.6 to 162 in 5 steps at 1e-4), and two
+# diverging runs part by more than PIX_TOL whatever the order of their sums.
+DP_LR = 1e-5
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+class _AllReduceBytes:
+    """Counts the bytes that `torch.distributed.all_reduce` is given while
+    inside (the collectives call it through the module's attribute)."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.bytes, self._orig = 0, dist.all_reduce
+
+        def counted(t, *args, **kwargs):
+            self.bytes += t.numel() * t.element_size()
+            return self._orig(t, *args, **kwargs)
+
+        dist.all_reduce = counted
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.all_reduce = self._orig
+        return False
+
+
+def _spy_applied(opt, trainable) -> tuple:
+    """`({name: gradient}, undo)`: the gradients as AdamW applies them
+    (reduced, clipped), filled at each update of `opt` until `undo()`."""
+    applied = {}
+    adamw_step = opt.adamw.step
+
+    def spy(*args, **kwargs):
+        applied.update({n: p.grad.detach().clone() for n, p in trainable})
+        return adamw_step(*args, **kwargs)
+
+    def undo():
+        opt.adamw.step = adamw_step
+
+    opt.adamw.step = spy
+    return applied, undo
+
+
+def _first_difference(a: dict, b: dict) -> str:
+    """The first name (in order) whose tensors differ, with the largest
+    |difference|; '' when all are bit-identical."""
+    for name in a:
+        if not torch.equal(a[name], b[name]):
+            return f"{name} (max |d| {(a[name].float() - b[name].float()).abs().max().item():.3g})"
+    return ""
+
+
+def _dp_world1_step(label: str, path: str, module, batch, frozen: tuple, opt_kwargs: dict,
+                    gen_seed: int, group, smi: str) -> dict:
+    """`module` and a copy of it, one through `make_train_step` without a
+    group and one through the distributed step on `group` (one NCCL rank),
+    each from a generator of `gen_seed`: the first step's loss, metrics,
+    applied gradients and parameters after it bit-identical; then
+    DP_TIMED_STEPS more of each, timed in turns (bare, dp, dp, bare), with
+    each step's peak memory. Returns the DP step's launches, times,
+    memory and gradient bytes all-reduced."""
+    from open_genie_tpu_torch.train.losses import frozen_param_mask
+    from open_genie_tpu_torch.train.loop import make_optimizer, make_train_step
+
+    dev = batch.device
+    mask = frozen_param_mask(module, frozen)
+    runs = {}
+    for name, grp, m in (("bare", None, module), ("dp", group, copy.deepcopy(module))):
+        opt = make_optimizer(m, frozen_mask=mask, **opt_kwargs)
+        applied, undo = _spy_applied(opt, [(n, p) for n, p in m.named_parameters() if mask[n]])
+        runs[name] = {"module": m, "applied": applied, "undo": undo, "ms": [], "peak": [],
+                      "step": make_train_step(m, opt, compute_dtype=torch.bfloat16, group=grp),
+                      "gen": torch.Generator(device=dev).manual_seed(gen_seed)}
+    for name, run in runs.items():
+        _reset_counts()
+        with _AllReduceBytes() as reduced:
+            run["metrics"] = run["step"](batch, generator=run["gen"])
+            torch.cuda.synchronize()
+        run["counts"], run["bytes"] = _read_counts(), reduced.bytes
+        run["undo"]()
+        if name == "dp":
+            _assert_path_kernels(f"{label} dp", path, show=False)
+    bare, dp = runs["bare"], runs["dp"]
+    parts = {"metrics": (bare["metrics"], dp["metrics"]),
+             "applied gradients": (bare["applied"], dp["applied"]),
+             "parameters": (dict(bare["module"].named_parameters()),
+                            dict(dp["module"].named_parameters()))}
+    for part, (a, b) in parts.items():
+        assert set(a) == set(b) and a, f"[{label}] {part}: other names"
+        diff = _first_difference(a, b)
+        assert not diff, f"[{label}] the distributed step's {part}: {diff} differs"
+    sizes = {part: len(a) for part, (a, _) in parts.items()}
+    bare["applied"].clear()
+    dp["applied"].clear()
+    for name in ["bare", "dp", "dp", "bare"] * ((DP_TIMED_STEPS + 1) // 2):
+        run = runs[name]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run["step"](batch, generator=run["gen"])
+        torch.cuda.synchronize()
+        run["ms"].append((time.perf_counter() - t0) * 1e3)
+        run["peak"].append(torch.cuda.max_memory_allocated() / 2 ** 30)
+    ms = {name: statistics.median(run["ms"]) for name, run in runs.items()}
+    peak = {name: max(run["peak"]) for name, run in runs.items()}
+    print(f"[{label}] {smi}: one rank on NCCL: loss {dp['metrics']['loss'].item():.6f}, "
+          f"{sizes['metrics']} metrics, {sizes['applied gradients']} applied gradients and "
+          f"{sizes['parameters']} parameters after the first step bit-identical to the bare "
+          f"step's; {ms['dp']:.1f} ms per step against {ms['bare']:.1f} bare (medians of "
+          f"{len(dp['ms'])} in turns: {[round(t, 1) for t in dp['ms']]} and "
+          f"{[round(t, 1) for t in bare['ms']]}); {dp['bytes'] / 2 ** 20:.1f} MiB of gradient "
+          f"all-reduced per step; peak memory {peak['dp']:.2f} GiB against {peak['bare']:.2f} "
+          f"(both models resident); launches {dp['counts']}")
+    return {"launches": dp["counts"], "ms": ms["dp"], "bare_ms": ms["bare"],
+            "reduced_bytes": dp["bytes"], "peak_gib": peak["dp"], "bare_peak_gib": peak["bare"]}
+
+
+def phase_dp_world1(dev, smi: str) -> dict:
+    """Phase 29a: the distributed step on a one-rank NCCL group at full
+    width, against the bare step (phases 12's and 9's): MAGVIT2
+    `tokenizer_train_config()` at 4 x 8 x 64x64 (K1, K3 to K6) and
+    `genie_train_config()` at 4 x 16 x 64x64 (K1 to K4), bf16 compute."""
+    import torch.distributed as dist
+
+    from open_genie_tpu_torch.models.configs import genie_train_config, tokenizer_train_config
+    from open_genie_tpu_torch.parallel.mesh import init_distributed
+    from open_genie_tpu_torch.train.losses import GenieTrainModule, TokenizerTrainModule
+    from open_genie_tpu_torch.utils import init_weights
+
+    torch.backends.cudnn.deterministic = True
+    init_distributed(f"localhost:{_free_port()}", 1, 0, backend="nccl", device=dev)
+    try:
+        g = torch.Generator().manual_seed(SEED + 12)
+        module = init_weights(TokenizerTrainModule(**tokenizer_train_config()), g).to(dev)
+        video = torch.rand(*DP_TOK_BATCH, generator=g).to(dev)
+        tok = _dp_world1_step("dp tokenizer train", "tokenizer_train", module, video,
+                              ("perc_crit",), {}, SEED + 13, dist.group.WORLD, smi)
+        del module, video
+        g = torch.Generator().manual_seed(SEED + 7)
+        module = init_weights(GenieTrainModule(genie_train_config()), g).to(dev)
+        video = torch.rand(*DP_GENIE_BATCH, generator=g).to(dev)
+        genie = _dp_world1_step("dp train", "train_step", module, video, ("model/tokenizer",),
+                                dict(lr=1e-4, weight_decay=0.01, grad_clip=1.0), SEED + 8,
+                                dist.group.WORLD, smi)
+        del module, video
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return {"dp_tokenizer_train": tok, "dp_train_step": genie}
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _dp_rank_spec(work: Path) -> dict:
+    with open(work / "spec.json") as f:
+        return json.load(f)
+
+
+def dp_rank_main(work: Path) -> int:
+    """One rank of phase 29b (`chip_smoke.py --dp-rank-of <work>`, launched by
+    the phase with the `OGT_*` variables): K5/K6 on its 256 of 512 rows
+    through `lfq_avg_entropy(group=)`, then `cli train tokenizer` on the
+    phase's copy of tokenize.yaml (DP_STEPS steps) and on a copy resumed at
+    DP_RESUME_AT; writes what it saw to `rank<r>.pt`."""
+    import torch.distributed as dist
+
+    _import_port()
+    from open_genie_tpu_torch.cli import main as cli
+    from open_genie_tpu_torch.ops.lfq import lfq_avg_entropy
+    from open_genie_tpu_torch.parallel.mesh import batch_sharding, init_distributed, make_mesh
+    from open_genie_tpu_torch.train import trainer as ttrainer
+    from open_genie_tpu_torch.train.loop import CheckpointWriter
+
+    spec = _dp_rank_spec(work)
+    dev = torch.device(spec["device"])
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    assert init_distributed(device=dev)
+    rank, group = dist.get_rank(), dist.group.WORLD
+    rows = batch_sharding(make_mesh()).rows(512)
+    x = torch.randn(512, 18, generator=torch.Generator(device=dev).manual_seed(spec["seed"]),
+                    device=dev)[rows].clone().requires_grad_()
+    _reset_counts()
+    h = lfq_avg_entropy(x, 100.0, group=group)
+    q = h.grad_fn.saved_tensors[1]
+    h.backward()
+    _sync(dev)
+    out = {"q": q.cpu(), "dx": x.grad.cpu(), "h": h.item(), "split_counts": _read_counts()}
+
+    steps, written = [], []
+    make_step, save = ttrainer.make_train_step, CheckpointWriter.save
+
+    def timed_make_train_step(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def timed(batch, **kw):
+            _sync(dev)
+            _reset_counts()
+            t0 = time.perf_counter()
+            metrics = step(batch, **kw)
+            _sync(dev)
+            steps.append({"ms": (time.perf_counter() - t0) * 1e3, "launches": _read_counts(),
+                          "shapes": _read_shapes()})
+            return metrics
+
+        return timed
+
+    def spy_save(self, state, step=None):
+        written.append((Path(self.dir).name, step))
+        return save(self, state, step)
+
+    ttrainer.make_train_step, CheckpointWriter.save = timed_make_train_step, spy_save
+    state = cli(["train", "tokenizer", "--config", spec["cfg_a"], "--device", dev.type])
+    out["params_a"] = {n: p.detach().cpu() for n, p in state.module.named_parameters()}
+    dist.barrier(group)
+    if rank == 0:
+        for name in (str(DP_RESUME_AT), "config.yaml"):
+            src = Path(spec["ckpt_a"]) / name
+            (shutil.copytree if src.is_dir() else shutil.copy)(src, Path(spec["ckpt_b"]) / name)
+    dist.barrier(group)
+    cli(["train", "tokenizer", "--config", spec["cfg_b"], "--resume", "--device", dev.type])
+    out.update(steps=steps, written=written)
+    torch.save(out, work / f"rank{rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def _dp_reference(cfg_path: str, dev, steps: int) -> tuple:
+    """The one-process run that 29b's ranks are held to: `cli train`'s
+    module, optimizer and step (`make_train_step`, no group) on the
+    concatenation of the two ranks' batches (their loaders, `Mesh(2, 1,
+    r)`), with the frame picks each rank's generator draws; f32, TF32
+    off. Returns the per-step losses, ms and the parameters after."""
+    from open_genie_tpu_torch.parallel.mesh import Mesh, global_batch, rank_seed
+    from open_genie_tpu_torch.train.config import load_config
+    from open_genie_tpu_torch.train.loop import make_optimizer, make_train_step
+    from open_genie_tpu_torch.train.losses import frozen_param_mask
+    from open_genie_tpu_torch.train.trainer import (
+        _entropy_anneal_kwargs,
+        _opt_kwargs,
+        build_dataset,
+        build_loader,
+        build_tokenizer_module,
+        init_module,
+    )
+    from open_genie_tpu_torch.utils import random_frame_idxs
+
+    cfg = load_config(cfg_path, "tokenizer")
+    tcfg, mcfg = cfg.trainer, cfg.model
+    ds = build_dataset(cfg.data)
+    meshes = [Mesh(2, 1, r) for r in range(2)]
+    loaders = [build_loader(cfg, ds, dev, mesh=m) for m in meshes]
+    gens = [torch.Generator(device=dev).manual_seed(rank_seed(tcfg.seed, m)) for m in meshes]
+    module = init_module(build_tokenizer_module(mcfg), tcfg.seed, dev)
+    opt = make_optimizer(module, **_opt_kwargs(mcfg.optimizer),
+                         frozen_mask=frozen_param_mask(module, ("perc_crit",)))
+    step = make_train_step(module, opt, loss_kwargs=_entropy_anneal_kwargs(mcfg))
+    k = min(mcfg.gan_frames_per_batch, cfg.data.num_frames)
+    losses, times = [], []
+    for i, parts in enumerate(zip(*loaders)):
+        if i == steps:
+            break
+        video = global_batch([p.to(dev) for p in parts])
+        b, t = parts[0].shape[:2]
+        picks = [(random_frame_idxs(g, b, t, k, dev), random_frame_idxs(g, b, t, k, dev))
+                 for g in gens]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(video, perc_idxs=torch.cat([p for p, _ in picks]),
+                       gan_idxs=torch.cat([g for _, g in picks]))
+        losses.append(metrics["loss"].item())
+        times.append((time.perf_counter() - t0) * 1e3)
+    return losses, times, {n: p.detach().cpu() for n, p in module.named_parameters()}
+
+
+def f32_backward_check(label: str, shapes: set, dev) -> float:
+    """K3 and K4 in f32 (the CUDA-core variants) against the plain backward
+    at every `(B*H, N, D, causal)` an f32 path launched them at (the twin
+    over slices of 8 heads); returns the largest |difference|."""
+    from open_genie_tpu_torch.ops.kernels.flash_attention import (
+        flash_attention,
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 29)
+    err = 0.0
+    for bh, n, d, causal in sorted(shapes):
+        q, k, v, do = (torch.randn(bh, n, d, generator=g, device=dev) for _ in range(4))
+        o, lse = flash_attention(q, k, v, d ** -0.5, causal)
+        got = flash_attention_bwd(q, k, v, o, lse, do, d ** -0.5, causal)
+        ref = _by_heads(flash_attention_bwd_plain, (q, k, v, o, lse, do), d ** -0.5, causal)
+        torch.cuda.synchronize()
+        for a, b, name in zip(got, ref, ("dq", "dk", "dv")):
+            torch.testing.assert_close(a, b, **K3K4_TOL_F32,
+                                       msg=lambda m, name=name: f"{label} {name}: {m}")
+        e = max((a - b).abs().max().item() for a, b in zip(got, ref))
+        print(f"[{label}] K3/K4 f32 at {(bh, n, d, causal)} against the plain backward: "
+              f"|d| {e:.3g}")
+        err = max(err, e)
+        del q, k, v, do, o, lse, got, ref
+    return err
+
+
+def phase_dp_two_ranks(dev, smi: str) -> dict:
+    """Phase 29b: two ranks on the one card over gloo, each a process of
+    this script: K5/K6 at (512, 18) split 256 + 256 against K5/K6 over all
+    512 rows and the float64 sweep; `cli train tokenizer` on a copy of
+    tokenize.yaml with `trainer.n_data: 2` (f32, lr DP_LR, DP_STEPS steps,
+    a save every DP_RESUME_AT) against the one-process run on the same
+    global batches (`_dp_reference`), PIX_TOL; one checkpoint directory,
+    written by rank 0 alone; a resumed run ending on the uninterrupted
+    run's parameters; the ranks' parameters bit-equal."""
+    from open_genie_tpu_torch.ops.kernels.lfq_entropy import (
+        entropy_of,
+        lfq_avg_probs,
+        lfq_entropy_grad,
+    )
+    from open_genie_tpu_torch.train.loop import all_steps, load_checkpoint
+
+    (HERE / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_dp_", dir=HERE / "build"))
+    try:
+        over = {"model": {"optimizer": {"init_args": {"lr": DP_LR}}}}
+        runs = {}
+        for name in ("a", "b"):
+            run = work / name
+            runs[name] = (run, yaml_copy("tokenize.yaml", work, {**over, **trainer_overrides(
+                run, max_steps=DP_STEPS, precision="32", n_data=2, val_check_interval=DP_RESUME_AT,
+                limit_val_batches=1, ckpt_every_n_steps=DP_RESUME_AT, ckpt_max_keep=3)}))
+        spec = {"seed": SEED + 29, "device": dev.type, "cfg_a": runs["a"][1],
+                "cfg_b": runs["b"][1],
+                "ckpt_a": str(runs["a"][0] / "ckpt"), "ckpt_b": str(runs["b"][0] / "ckpt")}
+        (work / "spec.json").write_text(json.dumps(spec))
+        env = {**os.environ, "OGT_COORDINATOR": f"localhost:{_free_port()}",
+               "OGT_NUM_PROCESSES": "2", "OGT_BACKEND": "gloo"}
+        t0 = time.perf_counter()
+        logs = [open(work / f"rank{r}.log", "w") for r in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(HERE / "chip_smoke.py"), "--dp-rank-of", str(work)],
+            env={**env, "OGT_PROCESS_ID": str(r)}, stdout=log, stderr=subprocess.STDOUT,
+            cwd=HERE) for r, log in enumerate(logs)]
+        try:
+            codes = [p.wait(timeout=600) for p in procs]
+        finally:
+            for p, log in zip(procs, logs):
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                log.close()
+        seconds = time.perf_counter() - t0
+        logs = [(work / f"rank{r}.log").read_text() for r in range(2)]
+        assert codes == [0, 0], f"29b rank exit codes {codes}:\n" + "\n".join(
+            f"--- rank {r}\n{log[-3000:]}" for r, log in enumerate(logs))
+        ranks = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(2)]
+
+        # K5/K6 split 256 + 256 against all 512 rows and the float64 sweep.
+        x = torch.randn(512, 18, generator=torch.Generator(device=dev).manual_seed(spec["seed"]),
+                        device=dev)
+        q = ranks[0]["q"].to(dev)
+        assert torch.equal(ranks[0]["q"], ranks[1]["q"]), "the ranks' all-reduced q differ"
+        assert ranks[0]["h"] == ranks[1]["h"]
+        dx = torch.cat([r["dx"] for r in ranks]).to(dev)
+        q_one = lfq_avg_probs(x, 100.0)
+        eps = 1e-6
+        w = torch.where(q > eps, 1.0 + torch.log(q.clamp_min(eps)), math.log(eps))
+        dx_one = lfq_entropy_grad(x, w, 100.0) / 512
+        q_ref, dx_ref = lfq_sweep_f64(x, w, 100.0)
+        e_q = ((q.double() - q_ref).abs().max() / q_ref.max()).item()
+        e_dx = ((dx.double() * 512 - dx_ref).abs().max() / dx_ref.abs().max()).item()
+        e_one = ((q - q_one).abs().max() / q_one.max()).item()
+        h_one = entropy_of(q_one, eps).item()
+        split_counts = [r["split_counts"] for r in ranks]
+        print(f"[dp K5/K6] (512, 18) split 256 + 256 over gloo: q all-reduced, off the "
+              f"float64 sweep by {e_q:.3g} of max q and K5 over all 512 rows by {e_one:.3g}; "
+              f"dx by {e_dx:.3g} of max|dx| off the sweep, {(dx - dx_one).abs().max().item():.3g}"
+              f" off K6 over all rows; H {ranks[0]['h']:.6f} (one process {h_one:.6f}); "
+              f"launches per rank {split_counts}")
+        assert e_q <= 1e-5 and e_dx <= 1e-4, "the split K5/K6 disagree with the float64 sweep"
+        assert all(c["lfq_entropy_fwd"] == 1 and c["lfq_entropy_bwd"] == 1 for c in split_counts)
+
+        # cli train on two ranks against one process on the same batches.
+        steps = [r["steps"] for r in ranks]
+        with _Tf32Off():
+            ref_losses, ref_ms, ref_params = _dp_reference(spec["cfg_a"], dev, DP_STEPS)
+        records = read_jsonl(runs["a"][0] / "logs")
+        _finite_records("dp trainer", records)
+        losses = [r["loss"] for r in records if "loss" in r]
+        print(f"[dp trainer] per-step loss on two ranks {[round(v, 5) for v in losses]}, one "
+              f"process on the same global batches {[round(v, 5) for v in ref_losses]}")
+        np.testing.assert_allclose(losses, ref_losses, **PIX_TOL)
+        ckpt, at = load_checkpoint(spec["ckpt_a"])
+        assert at == DP_STEPS
+        p_err = max((ckpt["params"][n] - p).abs().max().item() for n, p in ref_params.items())
+        for n, p in ref_params.items():
+            torch.testing.assert_close(ckpt["params"][n], p, **PIX_TOL,
+                                       msg=lambda m, n=n: f"dp trainer {n}: {m}")
+        for n, p in ranks[0]["params_a"].items():
+            assert torch.equal(p, ranks[1]["params_a"][n]), f"the ranks' {n} differ"
+        assert ranks[1]["written"] == [], f"rank 1 wrote {ranks[1]['written']}"
+        periodic = sorted(w for w in ranks[0]["written"] if w[0] == "ckpt")
+        assert all_steps(spec["ckpt_a"]) == [DP_RESUME_AT, DP_STEPS], all_steps(spec["ckpt_a"])
+        resumed, _ = load_checkpoint(spec["ckpt_b"])
+        diff = _first_difference(ckpt["params"], resumed["params"])
+        assert not diff, f"the run resumed at {DP_RESUME_AT} ends off the uninterrupted: {diff}"
+        assert "[step" not in logs[1], "rank 1 printed step lines"
+        shapes = {}
+        for s in steps[0]:
+            for name in _FLASH:
+                for case in s["shapes"][name]:
+                    shapes.setdefault(name, set()).add(case)
+        k1_err = f32_path_check("dp trainer", shapes.get("flash_attention_fwd", set()), dev)
+        bwd = shapes.get("flash_attention_bwd_dkv", set()) | shapes.get("flash_attention_bwd_dq",
+                                                                         set())
+        k34_err = f32_backward_check("dp trainer", bwd, dev)
+        ms = [statistics.median([s["ms"] for s in st[1:]]) for st in steps]
+        one_ms = statistics.median(ref_ms[1:])
+        print(f"[dp trainer] {smi}: {ms[0]:.1f} and {ms[1]:.1f} ms per step on ranks 0 and 1 "
+              f"(medians of the timed steps after the first, both runs) against {one_ms:.1f} ms "
+              f"for the one-process step on the global batch; max |d param| after "
+              f"{DP_STEPS} steps {p_err:.3g}; the ranks' parameters bit-equal; checkpoints "
+              f"written by rank 0 {periodic}, none by rank 1; the run resumed at "
+              f"{DP_RESUME_AT} bit-identical to the uninterrupted one at {DP_STEPS}; launches "
+              f"per rank step {steps[0][-1]['launches']}; K1 f32 at the ranks' shapes within "
+              f"{k1_err:.3g} of its twin, K3/K4 {k34_err:.3g}; 29b took {seconds:.1f} s with "
+              f"both ranks' start-up")
+        return {"launches": steps[0][-1]["launches"], "split_launches": split_counts[0],
+                "rank_ms": ms, "one_process_ms": one_ms, "q_sweep_rel_err": e_q,
+                "dx_sweep_rel_err": e_dx, "param_max_abs_err": p_err, "seconds": seconds}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     global SEED
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=SEED,
                         help="seed of every phase's weights, data and noise")
-    SEED = parser.parse_args().seed
+    parser.add_argument("--dp-rank-of", default=None, help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    SEED = args.seed
+    if args.dp_rank_of:  # a rank that phase 29b launched
+        return dp_rank_main(Path(args.dp_rank_of))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this runs on an "
               "NVIDIA GPU", file=sys.stderr)
@@ -3503,6 +3977,8 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     vdisc = phase_video_disc(dev, device["smi"], tok_times["ms"])
     alt = phase_alt_resamplers(dev, device["smi"])
+    dp = {**phase_dp_world1(dev, device["smi"]), "dp_trainer": phase_dp_two_ranks(
+        dev, device["smi"])}
     module_paths = {"video_disc_train": vdisc, **{
         path: {"launches": alt["launches"][path], "shapes": alt["shapes"].get(path)}
         for path in MODULE_PATHS if path != "video_disc_train"}}
@@ -3521,8 +3997,14 @@ def main() -> int:
         # genie` and one `eval dynamics` call), then the trainer's: one step
         # of `cli train tokenizer` on tokenize.yaml, one clip of `cli
         # tokenize-data`, one step of `cli train dynamics` and of `cli train
-        # tokenizer` on r05b.
-        by_path = {**{path: module_paths[path]["launches"][name] for path in
+        # tokenizer` on r05b. First phase 29's: one distributed MAGVIT2 and
+        # Genie step on one NCCL rank, one step of rank 0 of `cli train
+        # tokenizer` on two ranks, and rank 0's half of the split K5/K6.
+        by_path = {"dp_tokenizer_train": dp["dp_tokenizer_train"]["launches"][name],
+                   "dp_train_step": dp["dp_train_step"]["launches"][name],
+                   "dp_trainer_rank0": dp["dp_trainer"]["launches"][name],
+                   "dp_lfq_split_rank0": dp["dp_trainer"]["split_launches"][name],
+                   **{path: module_paths[path]["launches"][name] for path in
                       ("video_disc_train", "alt_train", "alt_tokenize", "alt_stream",
                        "alt_decode")},
                    **{path: c[name] for path, c in cli_paths.items()},
@@ -3533,9 +4015,9 @@ def main() -> int:
                    **{path: stage[path]["launches"][name] for path in STAGE_PATHS},
                    "serve": serve["launches"][name], "tokenizer_train": tok_train[name],
                    "train_step": train.get(name, 0), "rollout": rollout.get(name, 0)}
-        # The newest path that runs the kernel, in the order above: one
-        # MAGVIT2 step with the video discriminator for K1, K3, K4, K5 and
-        # K6, one `ALT_ENC` tokenize for K2.
+        # The newest path that runs the kernel, in the order above: the
+        # distributed MAGVIT2 step for K1, K3, K4, K5 and K6, the
+        # distributed Genie step for K2.
         k["launches"] = next((c for c in by_path.values() if c > 0), 0)
         k["launches_by_path"] = by_path
         k["serve_launches"] = {"per_reset": serve["per_reset"][name],
@@ -3566,8 +4048,11 @@ def main() -> int:
     modules = {"video_disc_train": {k: v for k, v in vdisc.items()
                                     if k not in ("launches", "shapes")},
                "alt": {k: v for k, v in alt.items() if k not in ("launches", "shapes")}}
+    dp_times = {path: {k: v for k, v in out.items() if k not in ("launches", "split_launches")}
+                for path, out in dp.items()}
     print(json.dumps({"kernels": kernels, "serve": serve["times"], "stages": stages,
-                      "trainer": trainer_times, "cli": cli_times, "modules": modules}))
+                      "trainer": trainer_times, "cli": cli_times, "modules": modules,
+                      "dp": dp_times}))
     print(json.dumps({"ok": True, "device": {k: device[k] for k in ("platform", "kind", "count")}}))
     return 0
 

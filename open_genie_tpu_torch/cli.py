@@ -17,7 +17,13 @@ Usage:
   python -m open_genie_tpu_torch.cli make-data --root data --num-videos 64
 
 A model runs on the card unless `--device cpu` is given; `make-data` runs
-on the host. `generate`, `play` and `eval` compute in f32, as the JAX
+on the host. `train` and `tokenize-data` run on several devices when
+launched once per rank with the JAX package's variables: `OGT_COORDINATOR`
+(`host:port` of rank 0), `OGT_NUM_PROCESSES`, `OGT_PROCESS_ID` (and
+`OGT_BACKEND`, default NCCL on the card, gloo on the CPU); rank `r` takes
+`cuda:{r % device_count}`. `train` is then data-parallel over the ranks
+(only rank 0 prints the step lines and writes checkpoints), and
+`tokenize-data` shards the clips over them. `generate`, `play` and `eval` compute in f32, as the JAX
 package's do. Their random draws come from `torch.Generator`s seeded as
 JAX seeds its keys (`--seed` for `generate` and `play`, `trainer.seed` for
 `eval`), so they are not JAX's draws; at `--top-k 1` the sampled tokens do
@@ -50,17 +56,20 @@ def _tokenize_data(args):
     """Pre-tokenize a video dataset with a frozen genie checkpoint: each
     clip's token grid and latent-action ids, tokenized one clip at a time
     by `Genie.tokenize_with_actions` at the config's precision, become one
-    npz shard (the staged-training input of `train dynamics`)."""
+    npz shard (the staged-training input of `train dynamics`). On several
+    ranks, rank `r` writes clips `r, r + world, ...`."""
     import numpy as np
     import torch
 
     from open_genie_tpu_torch.data.tokens import write_token_shard
+    from open_genie_tpu_torch.parallel import collectives
     from open_genie_tpu_torch.train.config import load_config
     from open_genie_tpu_torch.train.trainer import (
         _compute_dtype,
         build_dataset,
         load_genie_params,
         resolve_device,
+        setup_mesh,
     )
 
     if not args.ckpt and not args.allow_random_params:
@@ -70,10 +79,11 @@ def _tokenize_data(args):
             "data); pass --allow-random-params to override for tests"
         )
     cfg = load_config(args.config, kind="genie")
-    device = resolve_device(args.device, "tokenize-data")
+    mesh, device = setup_mesh(cfg.trainer, resolve_device(args.device, "tokenize-data"))
+    primary = mesh.rank == 0
     dtype = _compute_dtype(cfg.trainer.precision) or torch.float32
     _, module, step = load_genie_params(cfg, args.ckpt, device=device)
-    if args.ckpt:
+    if args.ckpt and primary:
         print(f"# restored checkpoint step {step} from {args.ckpt}")
     genie = module.model.to(dtype).eval()
     written = {}
@@ -81,17 +91,20 @@ def _tokenize_data(args):
         try:
             dataset = build_dataset(cfg.data, split=split)
         except FileNotFoundError:
-            print(f"# split {split!r}: no source data, skipped")
+            if primary:
+                print(f"# split {split!r}: no source data, skipped")
             continue
         n = len(dataset) if args.limit is None else min(args.limit, len(dataset))
-        for i in range(n):
+        for i in range(mesh.rank, n, mesh.world):
             video = torch.from_numpy(np.asarray(dataset[i]))[None].to(device, dtype)
             tokens, acts = genie.tokenize_with_actions(video)
             write_token_shard(
                 os.path.join(args.out, split, f"{i:06d}.npz"),
                 tokens[0].cpu().numpy(), acts[0].cpu().numpy(),
             )
-        print(f"# split {split!r}: wrote {n} shards to {args.out}/{split}")
+        collectives.barrier(mesh.group)
+        if primary:
+            print(f"# split {split!r}: wrote {n} shards to {args.out}/{split}")
         written[split] = n
     return written
 
@@ -568,4 +581,10 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()

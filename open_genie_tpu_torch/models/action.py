@@ -22,6 +22,7 @@ from open_genie_tpu_torch.modules.attention import SpaceTimeAttention
 from open_genie_tpu_torch.modules.quantization import LookupFreeQuantization
 from open_genie_tpu_torch.modules.video import CausalConv3d
 from open_genie_tpu_torch.ops.lfq import codebook_entries
+from open_genie_tpu_torch.parallel import collectives
 from open_genie_tpu_torch.utils import cast_tuple
 
 
@@ -88,12 +89,13 @@ class LatentAction(nn.Module):
         action ids become action codes at inference)."""
         return codebook_entries(idxs, self.d_codebook)
 
-    def encode(self, video: torch.Tensor, mask: Optional[torch.Tensor] = None):
+    def encode(self, video: torch.Tensor, mask: Optional[torch.Tensor] = None, group=None):
         """Video `(B, T, H, W, C)` -> `((q_act, idxs, enc_video), q_loss,
         q_aux)`: the `(B, T, d)` quantized action code, the `(B, T)` action
         ids and the encoder features that `decode` takes. In training the
         code carries the straight-through gradient and `q_loss` is the LFQ
-        loss; outside training `q_loss` is None.
+        loss (over the global batch of a data-parallel `group`); outside
+        training `q_loss` is None.
 
         `mask` (bool, True = attend), where given, reaches every attention
         of the encoder's space-time blocks, spatial and temporal alike, as
@@ -105,7 +107,7 @@ class LatentAction(nn.Module):
                 layer, SpaceTimeAttention) else layer(x)
         b, t = x.shape[:2]
         act = self.to_act(x.reshape(b, t, -1))
-        (q_act, idxs), q_loss, q_aux = self.quant(act, training=self.training)
+        (q_act, idxs), q_loss, q_aux = self.quant(act, training=self.training, group=group)
         return (q_act, idxs, x), q_loss, q_aux
 
     def decode(self, enc_video: torch.Tensor, q_act: torch.Tensor) -> torch.Tensor:
@@ -116,13 +118,14 @@ class LatentAction(nn.Module):
             x = layer(x, (None, q_act)) if has_ext else layer(x)
         return self.proj_out(x)
 
-    def forward(self, video: torch.Tensor, mask: Optional[torch.Tensor] = None
+    def forward(self, video: torch.Tensor, mask: Optional[torch.Tensor] = None, group=None
                 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, Any]]:
         """Full VQ-VAE pass -> `(idxs, loss, aux)`: reconstruction MSE plus
-        the weighted LFQ loss. `mask` goes to the encoder (`encode`)."""
-        (q_act, idxs, enc_video), q_loss, q_aux = self.encode(video, mask)
+        the weighted LFQ loss, over the global batch of a data-parallel
+        `group`. `mask` goes to the encoder (`encode`)."""
+        (q_act, idxs, enc_video), q_loss, q_aux = self.encode(video, mask, group)
         recon = self.decode(enc_video, q_act)
-        rec_loss = ((recon - video) ** 2).mean()
+        rec_loss = collectives.mean((recon - video) ** 2, group)
         loss = rec_loss
         if q_loss is not None:
             loss = loss + q_loss * self.quant_loss_weight

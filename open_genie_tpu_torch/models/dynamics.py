@@ -13,6 +13,7 @@ from torch import nn
 
 from open_genie_tpu_torch.modules import blueprint_out_width, parse_blueprint
 from open_genie_tpu_torch.modules.attention import st_attn_cache
+from open_genie_tpu_torch.parallel import collectives
 from open_genie_tpu_torch.utils import module_dtype
 
 
@@ -126,30 +127,48 @@ class DynamicsModel(nn.Module):
         mask: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         fill: int = 0,
+        group=None,
+        rate_generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Bernoulli-masked token cross-entropy over `(B, T, H, W)` tokens.
 
-        `mask` (bool, True = masked) is given, or drawn from `generator`:
-        a rate ~ U(0.5, 1), then each position masked with that rate.
-        Masked positions are replaced by `fill`; the loss is the mean
-        cross-entropy over the masked positions only, against the original
-        tokens. Returns `(loss, {"masked_frac", "masked_acc"})`.
+        `mask` (bool, True = masked) is given, or drawn: a rate ~ U(0.5, 1)
+        from `rate_generator` (default `generator`), then each position
+        masked with that rate from `generator`. Masked positions are
+        replaced by `fill`; the loss is the mean cross-entropy over the
+        masked positions only, against the original tokens. Returns
+        `(loss, {"masked_frac", "masked_acc"})`.
+
+        With a data-parallel `group`, `tokens` are this rank's rows of the
+        global batch and every term is the global batch's: the sums over
+        the masked positions of every rank over their global count. One
+        rate a global batch, as the JAX package draws it, needs a
+        `rate_generator` in the same state on every rank; `generator` is
+        this rank's own.
         """
         if mask is None:
             if generator is None:
                 raise ValueError("pass a torch.Generator or a mask tensor")
             dev = tokens.device
-            rate = 0.5 + 0.5 * torch.rand((), generator=generator, device=dev)
+            rate = 0.5 + 0.5 * torch.rand((), generator=rate_generator or generator, device=dev)
             mask = torch.rand(tokens.shape, generator=generator, device=dev) < rate
         inp = tokens.masked_fill(mask, fill)
         logits = self(inp, act_id)
         logp = torch.log_softmax(logits.float(), dim=-1)
         tok_logp = torch.gather(logp, -1, tokens.long()[..., None])[..., 0]
         masked = mask.float()
-        denom = masked.sum().clamp_min(1.0)
-        loss = -(tok_logp * masked).sum() / denom
-        acc = ((logits.argmax(-1) == tokens).float() * masked).sum() / denom
-        return loss, {"masked_frac": masked.mean(), "masked_acc": acc}
+        nll, hits = (tok_logp * masked).sum(), ((logits.argmax(-1) == tokens).float() * masked).sum()
+        if not collectives.reduces(group):
+            denom = masked.sum().clamp_min(1.0)
+            frac = masked.mean()
+        else:
+            nll, hits, count, total = collectives.global_sums(
+                [nll, hits, masked.sum(), masked.numel()], group)
+            denom = count.clamp_min(1.0)
+            frac = (count / total).float()
+        loss = -nll / denom
+        acc = hits / denom
+        return loss, {"masked_frac": frac, "masked_acc": acc}
 
     def init_cache(self, batch: int, h: int, w: int, t_max: int,
                    dtype: Optional[torch.dtype] = None, device=None) -> List[dict]:

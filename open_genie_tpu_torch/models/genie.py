@@ -53,6 +53,8 @@ class Genie(nn.Module):
         mask: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         return_act_idxs: bool = False,
+        group=None,
+        rate_generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Joint latent-action + dynamics loss on `(B, T, H, W, C)` video.
 
@@ -61,14 +63,18 @@ class Genie(nn.Module):
         training mode. The dynamics' Bernoulli mask is `mask` or drawn from
         `generator` (see `DynamicsModel.compute_loss`). `return_act_idxs`
         adds the `(B, T)` per-input-frame action ids to the aux dict as
-        `act_idxs` (for evaluation; the train step wants scalars).
+        `act_idxs` (for evaluation; the train step wants scalars). With a
+        data-parallel `group`, `video` is this rank's rows of the global
+        batch and both losses are the global batch's (`rate_generator`: see
+        `DynamicsModel.compute_loss`).
         """
         _, tok_idxs = self.tokenizer.tokenize_frozen(video)
-        act_idxs, act_loss, act_aux = self.latent_action(video)
+        act_idxs, act_loss, act_aux = self.latent_action(video, group=group)
         act_idxs_full = act_idxs
         act_idxs = self.align_actions(act_idxs, tok_idxs.shape[1])
         dyn_loss, dyn_aux = self.dynamics.compute_loss(
-            tok_idxs, act_idxs, mask=mask, generator=generator
+            tok_idxs, act_idxs, mask=mask, generator=generator, group=group,
+            rate_generator=rate_generator,
         )
         aux = {
             "act_loss": act_loss,

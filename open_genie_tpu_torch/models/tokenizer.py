@@ -98,14 +98,16 @@ class VideoTokenizer(nn.Module):
         train: bool = False,
         entropy_scale=1.0,
         bit_balance_scale=1.0,
+        group=None,
     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """Encode -> quantize -> decode: `(rec_video, out)` with `out`
-        holding `quant`, `idxs`, `quant_loss` (None outside `train`) and the
-        LFQ aux terms `lfq_aux`."""
+        holding `quant`, `idxs`, `quant_loss` (None outside `train`; over
+        the global batch of a data-parallel `group`) and the LFQ aux terms
+        `lfq_aux`."""
         enc = self.encode(video)
         (quant, idxs), quant_loss, aux = self.quant(
             enc, beta=beta, training=train, entropy_scale=entropy_scale,
-            bit_balance_scale=bit_balance_scale,
+            bit_balance_scale=bit_balance_scale, group=group,
         )
         rec = self.decode(quant)
         return rec, {"quant": quant, "idxs": idxs, "quant_loss": quant_loss, "lfq_aux": aux}

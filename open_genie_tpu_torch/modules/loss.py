@@ -4,7 +4,8 @@ Both compare a per-video subset of frames, `idxs` `(B, K)` frame indices
 shared by the reconstruction and the input (`utils.random_frame_idxs`
 draws them; the parity tests feed the ones JAX drew), but for a GAN loss
 that judges whole clips (`discriminate="video"`), which ignores them.
-Losses are taken in f32.
+Losses are taken in f32; their means are the global batch's under a
+data-parallel `group` (`parallel.collectives`).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from torch import nn
 
 from open_genie_tpu_torch.modules.discriminator import FrameDiscriminator, VideoDiscriminator
 from open_genie_tpu_torch.modules.vgg import VGG16Features
+from open_genie_tpu_torch.parallel import collectives
 from open_genie_tpu_torch.utils import pick_frames
 
 
@@ -33,11 +35,11 @@ class PerceptualLoss(nn.Module):
         self.vgg = VGG16Features(feat_layers)
 
     def forward(self, rec_video: torch.Tensor, inp_video: torch.Tensor,
-                idxs: torch.Tensor) -> torch.Tensor:
+                idxs: torch.Tensor, group=None) -> torch.Tensor:
         fake_feat = self.vgg(pick_frames(rec_video, idxs))
         with torch.no_grad():
             real_feat = self.vgg(pick_frames(inp_video, idxs))
-        losses = [((fake_feat[k].float() - real_feat[k].float()) ** 2).mean()
+        losses = [collectives.mean((fake_feat[k].float() - real_feat[k].float()) ** 2, group)
                   for k in self.vgg.feat_layers]
         return torch.stack(losses).mean()
 
@@ -76,28 +78,28 @@ class GANLoss(nn.Module):
         return pick_frames(rec_video, idxs), pick_frames(inp_video, idxs)
 
     def forward(self, rec_video: torch.Tensor, inp_video: torch.Tensor, idxs: torch.Tensor,
-                train_gen: bool) -> torch.Tensor:
+                train_gen: bool, group=None) -> torch.Tensor:
         """The generator loss (`train_gen`) or the discriminator loss."""
         fake, real = self.examples(rec_video, inp_video, idxs)
         d_fs = self.disc(fake.detach())
         if train_gen:
-            return self._gen(self.disc(fake), d_fs)
-        return self._dis(d_fs, self.disc(real))
+            return self._gen(self.disc(fake), d_fs, group)
+        return self._dis(d_fs, self.disc(real), group)
 
     def both(self, rec_video: torch.Tensor, inp_video: torch.Tensor,
-             idxs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+             idxs: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
         """`(gen_loss, dis_loss)` with exact gradient separation under one
         optimizer; `d_fs` is shared, so this costs one extra D forward."""
         fake, real = self.examples(rec_video, inp_video, idxs)
         d_fs = self.disc(fake.detach())
         d_f = self.disc(fake)
         d_r = self.disc(real)
-        return self._gen(d_f, d_fs), self._dis(d_fs, d_r)
+        return self._gen(d_f, d_fs, group), self._dis(d_fs, d_r, group)
 
     @staticmethod
-    def _gen(d_f, d_fs):
-        return -(d_f.float() - d_fs.float() + d_fs.float().detach()).mean()
+    def _gen(d_f, d_fs, group=None):
+        return -collectives.mean(d_f.float() - d_fs.float() + d_fs.float().detach(), group)
 
     @staticmethod
-    def _dis(d_fs, d_r):
-        return (F.relu(1.0 + d_fs.float()) + F.relu(1.0 - d_r.float())).mean()
+    def _dis(d_fs, d_r, group=None):
+        return collectives.mean(F.relu(1.0 + d_fs.float()) + F.relu(1.0 - d_r.float()), group)

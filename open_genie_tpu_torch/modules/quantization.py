@@ -77,6 +77,7 @@ class LookupFreeQuantization(nn.Module):
         training: bool = False,
         entropy_scale=1.0,
         bit_balance_scale=1.0,
+        group=None,
     ) -> Tuple[Tuple[torch.Tensor, torch.Tensor], Optional[torch.Tensor], Dict[str, torch.Tensor]]:
         """Quantize `(..., input_dim)` features -> `((out, idxs), loss, aux)`.
 
@@ -86,7 +87,8 @@ class LookupFreeQuantization(nn.Module):
         gradient and `loss` is the LFQ loss of the `(..., c, d)` projected
         features against the `where(x > 0, 1, -1)` commitment target, its
         entropy objective scaled by `entropy_scale` and its bit balance by
-        `bit_balance_scale` (see `ops.lfq.lfq_loss`).
+        `bit_balance_scale` (see `ops.lfq.lfq_loss`), over the global batch
+        of a data-parallel `group`.
         """
         d, c = self.codebook_dim, self.num_codebook
         lead = x.shape[:-1]
@@ -103,5 +105,5 @@ class LookupFreeQuantization(nn.Module):
             return (out, idxs), None, {}
         quant = torch.where(x > 0, 1.0, -1.0).to(x.dtype)
         loss, aux = lfq_loss(x, quant, beta=beta, num_codebooks=c, entropy_scale=entropy_scale,
-                             bit_balance_scale=bit_balance_scale, **self.loss_kw)
+                             bit_balance_scale=bit_balance_scale, group=group, **self.loss_kw)
         return (out, idxs), loss, aux

@@ -49,6 +49,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from open_genie_tpu_torch.ops import kernels
+from open_genie_tpu_torch.parallel import collectives
 
 MIN_BITS, MAX_BITS = 13, 24  # the kernels' codebooks: 2^13 to 2^24 codes
 
@@ -209,13 +210,27 @@ def entropy_of(q: torch.Tensor, eps: float) -> torch.Tensor:
 class LfqAvgEntropy(torch.autograd.Function):
     """Entropy of the batch-averaged codeword distribution of `(n, d)`
     features, with K5 forward and K6 backward (their plain twins on the
-    CPU). Saves only `x` and `q`."""
+    CPU). Saves only `x`, `q` and the row count.
+
+    With a data-parallel `group` (`parallel.collectives`), `x` is this
+    rank's rows of the global batch: K5's local mean times the local rows
+    is all-reduced and divided by the global rows, so every rank takes the
+    entropy of the global `q`, and K6's gradient, with `w` from that `q`,
+    is divided by the global rows: `dH/dx` for this rank's rows exactly. A
+    rank may hold no rows (a strided subsample can miss its block)."""
 
     @staticmethod
-    def forward(ctx, x, beta: float, eps: float):
-        q = lfq_avg_probs(x, beta)
+    def forward(ctx, x, beta: float, eps: float, group=None):
+        if not collectives.reduces(group):
+            q, rows = lfq_avg_probs(x, beta), x.shape[0]
+        else:
+            n = x.shape[0]
+            local = (lfq_avg_probs(x, beta) * n if n
+                     else x.new_zeros(2 ** x.shape[1], dtype=torch.float32))
+            total, rows = collectives.global_sums([local, n], group)
+            q = total / rows
         ctx.save_for_backward(x, q)
-        ctx.beta, ctx.eps = beta, eps
+        ctx.beta, ctx.eps, ctx.rows = beta, eps, rows
         return entropy_of(q, eps)
 
     @staticmethod
@@ -223,8 +238,10 @@ class LfqAvgEntropy(torch.autograd.Function):
     def backward(ctx, g):
         x, q = ctx.saved_tensors
         eps = ctx.eps
+        if x.shape[0] == 0:
+            return torch.zeros_like(x), None, None, None
         # dH/dq_j = -w_j: 1 + log q_j above the clamp, log(eps) below it
         # (the clamped log passes no gradient).
         w = torch.where(q > eps, 1.0 + torch.log(q.clamp_min(eps)), math.log(eps))
-        dx = lfq_entropy_grad(x, w, ctx.beta) / x.shape[0]
-        return (g * dx).to(x.dtype), None, None
+        dx = lfq_entropy_grad(x, w, ctx.beta) / ctx.rows
+        return (g * dx).to(x.dtype), None, None, None

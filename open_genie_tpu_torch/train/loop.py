@@ -9,6 +9,12 @@ and optimizer state, each f32 parameter cast to bf16 through autograd for
 the forward, float batch leaves cast to bf16), on a `TrainState` that
 counts its calls. Checkpoints are torch files under `<ckpt_dir>/<step>/`,
 each written atomically.
+
+Data parallel (`make_train_step(group=)`): each rank runs the step on its
+rows of the global batch, the losses reduce their batch statistics across
+the ranks (`parallel.collectives`), and the trainable gradients are summed
+over the ranks once per applied update, before the clip: the update of
+the JAX package's step on an `n_data` mesh.
 """
 from __future__ import annotations
 
@@ -22,6 +28,8 @@ from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Tuple, Unio
 import torch
 from torch import nn
 from torch.func import functional_call
+
+from open_genie_tpu_torch.parallel import collectives
 
 Schedule = Union[float, Callable[[int], float]]
 
@@ -40,6 +48,11 @@ class AdamW:
     `decay * ema + (1 - decay) * param` over every parameter, frozen ones
     too (optax chains it after the freeze). A trainable parameter without a
     gradient steps as with a zero one, as optax's would.
+
+    With a data-parallel `group`, an applied call first sums the gradients
+    it applies (after accumulation) over the ranks, in flat buckets: each
+    rank's gradients are its share of the global loss's, so the sum is the
+    global gradient, and its norm is the one clipped and returned.
     """
 
     def __init__(self, named_params: Iterable[Tuple[str, nn.Parameter]],
@@ -65,15 +78,18 @@ class AdamW:
                     if ema_decay is not None else None)
 
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
-        """Accumulate and, on an applied call, clip and apply the
-        gradients; returns this call's gradient norm before clipping."""
+    def step(self, group=None) -> Optional[torch.Tensor]:
+        """Accumulate and, on an applied call, reduce over `group`, clip
+        and apply the gradients; returns this call's gradient norm before
+        clipping. With accumulation on more than one rank, a call that
+        applies nothing reduces nothing and returns None, and an applied
+        one returns the norm of the reduced mean it applies."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        norm = _global_norm(grads)
         if self.acc is not None:
+            norm = None if collectives.reduces(group) else _global_norm(grads)
             for a, g in zip(self.acc, grads):
                 a.add_((g - a) / (self.mini_step + 1))
             if self.mini_step < self.accum_steps - 1:
@@ -83,9 +99,12 @@ class AdamW:
                 g.copy_(a)
                 a.zero_()
             self.mini_step = 0
+            collectives.all_reduce_tensors_(grads, group)
             clip_norm = _global_norm(grads)
+            norm = clip_norm if norm is None else norm
         else:
-            clip_norm = norm
+            collectives.all_reduce_tensors_(grads, group)
+            norm = clip_norm = _global_norm(grads)
         if self.grad_clip:
             scale = torch.where(clip_norm < self.grad_clip, 1.0, self.grad_clip / clip_norm)
             for g in grads:
@@ -158,12 +177,20 @@ class TrainState:
     """What a training run carries from step to step: the module, its
     optimizer (which holds the EMA and the accumulation buffers), the
     generator that the stochastic losses draw from, and `step`, the count
-    of train-step calls (micro-steps included, as JAX's `state.step`)."""
+    of train-step calls (micro-steps included, as JAX's `state.step`).
+
+    On more than one rank, `generator` is this rank's own and
+    `shared_generator`, in the same state on every rank, draws what is one
+    draw per global batch (the dynamics' mask rate); `rank_generators`, the
+    states of every rank's `generator` gathered before a save, go into the
+    checkpoint that rank 0 writes."""
 
     module: nn.Module
     optimizer: AdamW
     generator: Optional[torch.Generator] = None
     step: int = 0
+    shared_generator: Optional[torch.Generator] = None
+    rank_generators: Optional[list] = None
 
     @property
     def ema(self) -> Optional[Dict[str, torch.Tensor]]:
@@ -175,8 +202,13 @@ class TrainState:
 
     def train_state_dict(self) -> Dict[str, Any]:
         """Everything but the parameters."""
-        return {"step": self.step, "optimizer": self.optimizer.state_dict(),
-                "generator": None if self.generator is None else self.generator.get_state()}
+        out = {"step": self.step, "optimizer": self.optimizer.state_dict(),
+               "generator": None if self.generator is None else self.generator.get_state()}
+        if self.shared_generator is not None:
+            out["shared_generator"] = self.shared_generator.get_state()
+        if self.rank_generators is not None:
+            out["rank_generators"] = self.rank_generators
+        return out
 
 
 def _cast_batch(batch: Any, dtype: torch.dtype) -> Any:
@@ -225,6 +257,7 @@ def make_train_step(
     optimizer: Optional[AdamW] = None,
     compute_dtype: Optional[torch.dtype] = None,
     loss_kwargs: Optional[Dict[str, Any]] = None,
+    group=None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Build `step(batch, **kwargs) -> metrics`: one forward, backward and
     optimizer call of `module(batch, **loss_kwargs, **kwargs)`, which
@@ -240,7 +273,14 @@ def make_train_step(
     arrive in f32, on a batch whose float leaves are cast to bf16. Metrics
     are detached tensors: the module's, plus `loss` (f32) and `grad_norm`
     (this call's global norm over the trainable parameters, before
-    clipping).
+    clipping; see `AdamW.step` for accumulation on several ranks).
+
+    With a data-parallel `group` (a `torch.distributed` process group),
+    every rank calls the step on its rows of the global batch: the module
+    gets `group` (its losses and metrics are then the global batch's) and,
+    where the state has one, `rate_generator=state.shared_generator`; the
+    optimizer sums the gradients over the ranks. Building the step
+    broadcasts rank 0's parameters, buffers and EMA to every rank first.
     """
     if not isinstance(state, TrainState):
         state = TrainState(state, optimizer)
@@ -248,12 +288,23 @@ def make_train_step(
     loss_kwargs = dict(loss_kwargs or {})
     run = _LossAndBackward(module)
     pass_generator = takes_kwarg(module, "generator")
+    pass_group = group is not None and takes_kwarg(module, "group")
+    pass_rate = takes_kwarg(module, "rate_generator")
+    if group is not None:
+        with torch.no_grad():
+            collectives.broadcast_tensors_(
+                [t.detach() for t in (*module.parameters(), *module.buffers())]
+                + list((optimizer.ema or {}).values()), group)
 
     def step(batch, **kwargs) -> Dict[str, torch.Tensor]:
         kwargs = {**{k: v(state.step) if callable(v) else v for k, v in loss_kwargs.items()},
                   **kwargs}
         if pass_generator and state.generator is not None:
             kwargs.setdefault("generator", state.generator)
+        if pass_group:
+            kwargs.setdefault("group", group)
+        if pass_rate and state.shared_generator is not None:
+            kwargs.setdefault("rate_generator", state.shared_generator)
         if compute_dtype is None:
             loss, metrics = run(batch, kwargs)
         else:
@@ -261,13 +312,14 @@ def make_train_step(
             loss, metrics = functional_call(
                 run, params, (_cast_batch(batch, compute_dtype), kwargs)
             )
-        grad_norm = optimizer.step()
+        grad_norm = optimizer.step(group)
         optimizer.zero_grad()
         state.step += 1
         out = {k: v.detach() if isinstance(v, torch.Tensor) else torch.tensor(v)
                for k, v in metrics.items()}
         out["loss"] = loss
-        out["grad_norm"] = grad_norm
+        if grad_norm is not None:
+            out["grad_norm"] = grad_norm
         return out
 
     step.state = state
@@ -383,17 +435,25 @@ def restore_params(ckpt_dir: str, module: nn.Module) -> Tuple[nn.Module, int]:
     return module, step
 
 
-def restore_checkpoint(ckpt_dir: str, state: TrainState) -> Tuple[TrainState, int]:
+def restore_checkpoint(ckpt_dir: str, state: TrainState, rank: int = 0, world: int = 1
+                       ) -> Tuple[TrainState, int]:
     """Restore the latest checkpoint into `state` in place: parameters,
     optimizer (EMA, accumulation), generator and step; `(state, step)`,
-    step 0 and the state untouched when there is none."""
+    step 0 and the state untouched when there is none. Rank `rank` of a
+    run of `world` takes its own generator's state from a checkpoint of a
+    run as wide, and keeps the one it has from any other."""
     if latest_step(ckpt_dir) is None:
         return state, 0
     ckpt, step = load_checkpoint(ckpt_dir)
     state.module.load_state_dict(ckpt["params"])
     saved = ckpt["train_state"]
     state.optimizer.load_state_dict(saved["optimizer"])
-    if state.generator is not None and saved["generator"] is not None:
-        state.generator.set_state(saved["generator"])
+    gens = saved.get("rank_generators")
+    mine = (gens[rank] if gens is not None and len(gens) == world
+            else saved["generator"] if world == 1 else None)
+    if state.generator is not None and mine is not None:
+        state.generator.set_state(mine)
+    if state.shared_generator is not None and saved.get("shared_generator") is not None:
+        state.shared_generator.set_state(saved["shared_generator"])
     state.step = saved["step"]
     return state, step

@@ -2,6 +2,13 @@
 tokenizer's full-loss objective (stage 1), the standalone latent-action
 objective (stage 2), the dynamics-only objective over token batches
 (stage 3) and the Genie joint objective.
+
+Each takes a data-parallel `group` (`parallel.collectives`; None in one
+process): its batch is then this rank's rows of the global batch, and the
+loss and every metric are the global batch's, the same on every rank, with
+each rank's backward exactly the global loss's for its own rows. The
+per-sample noise (frame picks, Bernoulli masks) comes from this rank's
+`generator`, or is fed as this rank's rows of the global batch's noise.
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ from open_genie_tpu_torch.models.dynamics import DynamicsModel
 from open_genie_tpu_torch.models.genie import Genie
 from open_genie_tpu_torch.models.tokenizer import VideoTokenizer
 from open_genie_tpu_torch.modules.loss import GANLoss, PerceptualLoss
+from open_genie_tpu_torch.parallel import collectives
 from open_genie_tpu_torch.utils import random_frame_idxs
 
 
@@ -64,6 +72,7 @@ class TokenizerTrainModule(nn.Module):
         perc_idxs: Optional[torch.Tensor] = None,
         gan_idxs: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        group=None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Full training loss on `(B, T, H, W, C)` video in [0, 1]:
         `(loss, metrics)`. The frames the perceptual and GAN losses compare
@@ -84,20 +93,21 @@ class TokenizerTrainModule(nn.Module):
         video_gan = self.gan_crit is not None and self.gan_crit.discriminate == "video"
         gan_idxs = None if video_gan else idxs(gan_idxs)
         rec, out = self.model(video, beta=beta, train=train, entropy_scale=entropy_scale,
-                              bit_balance_scale=bit_balance_scale)
-        rec_loss = ((rec.float() - video.float()) ** 2).mean()
+                              bit_balance_scale=bit_balance_scale, group=group)
+        rec_loss = collectives.mean((rec.float() - video.float()) ** 2, group)
         zero = torch.zeros((), device=video.device)
         gen_loss = dis_loss = perc_loss = zero
         if self.gan_crit is not None:
             if gan_branch == "both":
-                gen_loss, dis_loss = self.gan_crit.both(rec, video, gan_idxs)
+                gen_loss, dis_loss = self.gan_crit.both(rec, video, gan_idxs, group)
             elif gan_branch in ("gen", "dis"):
-                loss = self.gan_crit(rec, video, gan_idxs, train_gen=gan_branch == "gen")
+                loss = self.gan_crit(rec, video, gan_idxs, train_gen=gan_branch == "gen",
+                                     group=group)
                 gen_loss, dis_loss = (loss, zero) if gan_branch == "gen" else (zero, loss)
             else:
                 raise ValueError(f"gan_branch {gan_branch!r} not in both, gen, dis")
         if self.perc_crit is not None:
-            perc_loss = self.perc_crit(rec, video, perc_idxs)
+            perc_loss = self.perc_crit(rec, video, perc_idxs, group)
         quant_loss = out["quant_loss"] if out["quant_loss"] is not None else zero
         w = self.weights
         loss = (rec_loss + gen_loss * w["gan"] + dis_loss * w["gan"] + perc_loss * w["perc"]
@@ -137,8 +147,11 @@ class GenieTrainModule(nn.Module):
         video: torch.Tensor,
         mask: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        group=None,
+        rate_generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        return self.model.compute_loss(video, mask=mask, generator=generator)
+        return self.model.compute_loss(video, mask=mask, generator=generator, group=group,
+                                       rate_generator=rate_generator)
 
     def full_init(self, video: torch.Tensor, mask: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -163,11 +176,11 @@ class ActionTrainModule(nn.Module):
         super().__init__()
         self.model = LatentAction(**latent_action)
 
-    def forward(self, video: torch.Tensor, mask: Optional[torch.Tensor] = None
+    def forward(self, video: torch.Tensor, mask: Optional[torch.Tensor] = None, group=None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """`(loss, metrics)` on `(B, T, H, W, C)` video: `loss` and the
         model's terms as `act_*`."""
-        _, loss, aux = self.model(video, mask)
+        _, loss, aux = self.model(video, mask, group=group)
         return loss, {"loss": loss, **{f"act_{k}": v for k, v in aux.items()}}
 
 
@@ -181,13 +194,16 @@ class DynamicsTrainModule(nn.Module):
         self.model = DynamicsModel(**dynamics)
 
     def forward(self, batch: Dict[str, torch.Tensor], mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None, group=None,
+                rate_generator: Optional[torch.Generator] = None,
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """`(loss, metrics)`: `loss`, `dyn_loss` (the same value) and the
         model's terms as `dyn_*`. The Bernoulli mask is `mask` or drawn
-        from `generator`."""
+        from `generator` (its rate from `rate_generator`, default
+        `generator`)."""
         loss, aux = self.model.compute_loss(batch["tokens"], batch["actions"], mask=mask,
-                                            generator=generator)
+                                            generator=generator, group=group,
+                                            rate_generator=rate_generator)
         return loss, {"loss": loss, "dyn_loss": loss, **{f"dyn_{k}": v for k, v in aux.items()}}
 
 

@@ -3,10 +3,15 @@
 
 `train_tokenizer`, `train_action`, `train_dynamics` and `train_genie` take
 an `ExperimentConfig` and run on `device` ("cuda" unless the caller asks
-for the CPU), on one device: `trainer.n_data` or `n_model` above 1 raises.
-Weights start from `trainer.seed` (`utils.init_weights`), then from the
-warm-start checkpoints the config names. Checkpoints, validation, logging
-and the profiler window follow the JAX package's loop (`_run_loop`).
+for the CPU). Launched once per rank with the `OGT_*` variables
+(`parallel.mesh.init_distributed`), they train data-parallel over
+`trainer.n_data` ranks, one device each (`cuda:{rank % device_count}`):
+each rank loads its stride of the data and the step is the global
+batch's; rank 0 alone logs and writes checkpoints. `trainer.n_model`
+above 1 (tensor parallelism) raises. Weights start from `trainer.seed`
+(`utils.init_weights`), then from the warm-start checkpoints the config
+names. Checkpoints, validation, logging and the profiler window follow the
+JAX package's loop (`_run_loop`).
 """
 from __future__ import annotations
 
@@ -22,8 +27,18 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from open_genie_tpu_torch.data.loader import BatchLoader, device_prefetch
+from open_genie_tpu_torch.data.loader import BatchLoader, DatasetShard, device_prefetch
 from open_genie_tpu_torch.data.video import Platformer2D, SyntheticVideo
+from open_genie_tpu_torch.parallel import collectives
+from open_genie_tpu_torch.parallel.mesh import (
+    Mesh,
+    batch_sharding,
+    init_distributed,
+    make_mesh,
+    rank_device,
+    rank_seed,
+    replicated,
+)
 from open_genie_tpu_torch.train.config import (
     DynamicsModelConfig,
     ExperimentConfig,
@@ -62,11 +77,26 @@ def resolve_device(device, what: str = "training") -> torch.device:
     return device
 
 
-def _single_device(tcfg) -> None:
-    if (tcfg.n_data or 1) > 1 or (tcfg.n_model or 1) > 1:
+def setup_mesh(tcfg, device) -> Tuple[Mesh, torch.device]:
+    """`(mesh, this rank's device)`: the run the `OGT_*` variables name
+    joined (none: one process), as the JAX trainer's `init_distributed()`
+    and `make_mesh(n_data, n_model)`. One process a data rank: `n_data`
+    (None: every rank) above the run's ranks raises JAX's oversubscription
+    message, below them raises; `n_model` above 1 raises. On more than one
+    rank the global RNG (dropout) is seeded per rank."""
+    if (tcfg.n_model or 1) > 1:
         raise NotImplementedError(
-            f"trainer.n_data={tcfg.n_data}, n_model={tcfg.n_model}: distributed "
-            "training is not ported yet (ROADMAP.md Queue 1); the port trains on one device")
+            f"trainer.n_model={tcfg.n_model}: tensor parallelism is not ported yet "
+            "(ROADMAP.md, Queue 1: the TP slice); the port trains data-parallel, n_model: 1")
+    init_distributed(device=device)
+    mesh = make_mesh(tcfg.n_data, 1)
+    ranks = collectives.world_size(mesh.group)
+    if mesh.n_data != ranks:
+        raise ValueError(f"trainer.n_data={tcfg.n_data} on {ranks} processes: the port "
+                         "runs one process a data rank (launch n_data, or unset n_data)")
+    if mesh.world > 1:
+        torch.manual_seed(rank_seed(tcfg.seed, mesh))
+    return mesh, rank_device(device, mesh)
 
 
 def build_dataset(cfg, split: str = "train") -> object:
@@ -147,18 +177,42 @@ def _check_action_frames(latent_action: dict, dataset, cfg) -> None:
                          f"{tuple(shape)} frames")
 
 
-def build_loader(cfg, dataset, device, split: str = "train"):
+def build_loader(cfg, dataset, device, split: str = "train", mesh: Mesh = Mesh(1)):
     """Batch loader for a dataset: the C++ prefetcher for a .gvid source
     (`data/native.py`, `data.num_workers` threads), `BatchLoader`'s decode
     threads otherwise; shuffled train batches, validation batches of
     `min(batch_size, len(dataset))` in order, pinned host memory for a
-    CUDA device."""
+    CUDA device.
+
+    On a `mesh` of more than one rank (the JAX package's multi-process
+    loader): validation batches round down to a multiple of `n_data` (a
+    val set smaller than `n_data` gives every rank the same whole batches,
+    JAX's small-val-set branch); the global batch must divide over the
+    ranks, and each rank loads its share of it from its stride of the
+    dataset (`DatasetShard`), over the longest prefix that divides by the
+    ranks, so that every rank serves as many batches. A sharded `.gvid`
+    source is no `GVidDataset` and takes `BatchLoader`, as JAX's does."""
     from open_genie_tpu_torch.data.native import GVidDataset, NativeBatchLoader
 
     train = split == "train"
     batch_size = cfg.data.batch_size
+    sharding = batch_sharding(mesh)
     if not train:
         batch_size = min(batch_size, len(dataset))
+        rounded = batch_size - batch_size % mesh.n_data
+        if rounded == 0:
+            sharding = replicated(mesh)  # val set smaller than the data axis
+        else:
+            batch_size = rounded
+    ranks = sharding.count
+    if ranks > 1:
+        if batch_size % ranks:
+            raise ValueError(f"global batch {batch_size} must divide over {ranks} processes")
+        even = len(dataset) - len(dataset) % ranks
+        if even < len(dataset):
+            dataset = torch.utils.data.Subset(dataset, range(even))
+        dataset = DatasetShard(dataset, sharding.index, ranks)
+        batch_size //= ranks
     pin = torch.device(device).type == "cuda"
     if isinstance(dataset, GVidDataset):
         return NativeBatchLoader(dataset, batch_size=batch_size, shuffle=train,
@@ -396,20 +450,27 @@ def save_config_snapshot(ckpt_dir: str, cfg: ExperimentConfig) -> None:
         yaml.safe_dump(snap, f, sort_keys=False)
 
 
-def _make_val_fn(module: nn.Module, compute_dtype, seed: int) -> Callable:
+def _make_val_fn(module: nn.Module, compute_dtype, seed: int, mesh: Mesh) -> Callable:
     """`val_fn(batch, step) -> metrics`: the loss in evaluation mode
     (`train=False` where the module takes it), no gradient and no update,
     in the compute dtype of the train step, drawing its noise from a
-    generator of `seed + step`."""
+    generator of `seed + step` (one a rank, and the mask rate from one
+    shared, on a `mesh` of several ranks, whose metrics are the global
+    batch's)."""
     kwargs = {"train": False} if takes_kwarg(module, "train") else {}
+    if mesh.group is not None and takes_kwarg(module, "group"):
+        kwargs["group"] = mesh.group
     with_gen = takes_kwarg(module, "generator")
+    with_rate = mesh.world > 1 and takes_kwarg(module, "rate_generator")
 
     @torch.no_grad()
     def val_fn(batch, step: int) -> Dict[str, torch.Tensor]:
         kw = dict(kwargs)
+        device = next(module.parameters()).device
         if with_gen:
-            device = next(module.parameters()).device
-            kw["generator"] = torch.Generator(device).manual_seed(seed + step)
+            kw["generator"] = torch.Generator(device).manual_seed(rank_seed(seed + step, mesh))
+        if with_rate:
+            kw["rate_generator"] = torch.Generator(device).manual_seed(seed + step)
         module.eval()
         try:
             if compute_dtype is None:
@@ -459,29 +520,34 @@ def make_eval_video_hook(module: GenieTrainModule, tcfg, size: int = 64,
 
 def _fit(cfg: ExperimentConfig, module: nn.Module, dataset, device, resume: bool,
          frozen: Tuple[str, ...] = (), loss_kwargs: Optional[dict] = None,
-         val_dataset=None, eval_hook=None) -> TrainState:
+         val_dataset=None, eval_hook=None, mesh: Mesh = Mesh(1)) -> TrainState:
     """The part every stage shares: loaders, optimizer (with the frozen
-    prefixes), train state with its generator, resume, train step,
-    validation, config snapshot, then the loop."""
+    prefixes), train state with its generators, resume, train step (over
+    `mesh`'s ranks), validation, config snapshot, then the loop."""
     tcfg = cfg.trainer
-    loader = build_loader(cfg, dataset, device)
+    loader = build_loader(cfg, dataset, device, mesh=mesh)
     mask = frozen_param_mask(module, frozen) if frozen else None
     optimizer = make_optimizer(module, **_opt_kwargs(cfg.model.optimizer), frozen_mask=mask)
-    state = TrainState(module, optimizer, torch.Generator(device).manual_seed(tcfg.seed))
+    shared = torch.Generator(device).manual_seed(tcfg.seed) if mesh.world > 1 else None
+    state = TrainState(module, optimizer,
+                       torch.Generator(device).manual_seed(rank_seed(tcfg.seed, mesh)),
+                       shared_generator=shared)
     start_step = 0
     if resume:
-        state, start_step = restore_checkpoint(tcfg.ckpt_dir, state)
+        state, start_step = restore_checkpoint(tcfg.ckpt_dir, state, mesh.rank, mesh.world)
     compute_dtype = _compute_dtype(tcfg.precision)
-    step_fn = make_train_step(state, compute_dtype=compute_dtype, loss_kwargs=loss_kwargs)
+    step_fn = make_train_step(state, compute_dtype=compute_dtype, loss_kwargs=loss_kwargs,
+                              group=mesh.group)
     val_loader = val_fn = None
     if tcfg.val_check_interval and val_dataset is not None:
-        val_loader = build_loader(cfg, val_dataset, device, split="val")
-        val_fn = _make_val_fn(module, compute_dtype, tcfg.seed + 1)
+        val_loader = build_loader(cfg, val_dataset, device, split="val", mesh=mesh)
+        val_fn = _make_val_fn(module, compute_dtype, tcfg.seed + 1, mesh)
     else:
         eval_hook = None
-    save_config_snapshot(tcfg.ckpt_dir, cfg)
+    if mesh.rank == 0:
+        save_config_snapshot(tcfg.ckpt_dir, cfg)
     return _run_loop(state, step_fn, loader, tcfg, start_step, device, resume=resume,
-                     val_fn=val_fn, val_loader=val_loader, eval_hook=eval_hook)
+                     val_fn=val_fn, val_loader=val_loader, eval_hook=eval_hook, mesh=mesh)
 
 
 def _val_dataset(cfg, tcfg):
@@ -500,8 +566,7 @@ def train_tokenizer(cfg: ExperimentConfig, resume: bool = False, device="cuda") 
     the discriminator's on odd ones, over one optimizer and step count."""
     mcfg: TokenizerModelConfig = cfg.model
     tcfg = cfg.trainer
-    _single_device(tcfg)
-    device = resolve_device(device, "train_tokenizer")
+    mesh, device = setup_mesh(tcfg, resolve_device(device, "train_tokenizer"))
     dataset = build_dataset(cfg.data)
     module = init_module(build_tokenizer_module(mcfg), tcfg.seed, device)
     warn_random_perceptual(mcfg)
@@ -515,7 +580,7 @@ def train_tokenizer(cfg: ExperimentConfig, resume: bool = False, device="cuda") 
         loss_kwargs["gan_branch"] = lambda step: "gen" if step % 2 == 0 else "dis"
     frozen = ("perc_crit",) if mcfg.perc_loss_weight > 0 else ()
     return _fit(cfg, module, dataset, device, resume, frozen, loss_kwargs,
-                val_dataset=_val_dataset(cfg, tcfg))
+                val_dataset=_val_dataset(cfg, tcfg), mesh=mesh)
 
 
 def train_genie(cfg: ExperimentConfig, resume: bool = False, device="cuda") -> TrainState:
@@ -524,8 +589,7 @@ def train_genie(cfg: ExperimentConfig, resume: bool = False, device="cuda") -> T
     has one), `dynamics_ckpt`, `action_ckpt`."""
     mcfg: GenieModelConfig = cfg.model
     tcfg = cfg.trainer
-    _single_device(tcfg)
-    device = resolve_device(device, "train_genie")
+    mesh, device = setup_mesh(tcfg, resolve_device(device, "train_genie"))
     dataset = build_dataset(cfg.data)
     _check_action_frames(mcfg.latent_action, dataset, cfg)
     module = init_module(GenieTrainModule(genie_model_kwargs(mcfg)), tcfg.seed, device)
@@ -539,7 +603,7 @@ def train_genie(cfg: ExperimentConfig, resume: bool = False, device="cuda") -> T
         _load_subtree_into_genie(module, mcfg.action_ckpt, "latent_action")
     hook = make_eval_video_hook(module, tcfg, size=cfg.data.height, num_frames=8)
     return _fit(cfg, module, dataset, device, resume, ("model/tokenizer",),
-                val_dataset=_val_dataset(cfg, tcfg), eval_hook=hook)
+                val_dataset=_val_dataset(cfg, tcfg), eval_hook=hook, mesh=mesh)
 
 
 def train_action(cfg: ExperimentConfig, resume: bool = False, device="cuda") -> TrainState:
@@ -548,12 +612,12 @@ def train_action(cfg: ExperimentConfig, resume: bool = False, device="cuda") -> 
     through `model.action_ckpt`."""
     mcfg = cfg.model
     tcfg = cfg.trainer
-    _single_device(tcfg)
-    device = resolve_device(device, "train_action")
+    mesh, device = setup_mesh(tcfg, resolve_device(device, "train_action"))
     dataset = build_dataset(cfg.data)
     _check_action_frames(mcfg.latent_action, dataset, cfg)
     module = init_module(ActionTrainModule(latent_action=mcfg.latent_action), tcfg.seed, device)
-    return _fit(cfg, module, dataset, device, resume, val_dataset=_val_dataset(cfg, tcfg))
+    return _fit(cfg, module, dataset, device, resume, val_dataset=_val_dataset(cfg, tcfg),
+                mesh=mesh)
 
 
 def train_dynamics(cfg: ExperimentConfig, resume: bool = False, device="cuda") -> TrainState:
@@ -561,14 +625,14 @@ def train_dynamics(cfg: ExperimentConfig, resume: bool = False, device="cuda") -
     (`data.source: tokens`, shards from `cli tokenize-data`)."""
     mcfg: DynamicsModelConfig = cfg.model
     tcfg = cfg.trainer
-    _single_device(tcfg)
-    device = resolve_device(device, "train_dynamics")
+    mesh, device = setup_mesh(tcfg, resolve_device(device, "train_dynamics"))
     if cfg.data.source != "tokens":
         raise ValueError("train_dynamics consumes pre-tokenized shards; set data.source: "
                          "tokens and data.root to a tokenize-data output directory")
     dataset = build_dataset(cfg.data)
     module = init_module(DynamicsTrainModule(dynamics=mcfg.dynamics_kwargs()), tcfg.seed, device)
-    return _fit(cfg, module, dataset, device, resume, val_dataset=_val_dataset(cfg, tcfg))
+    return _fit(cfg, module, dataset, device, resume, val_dataset=_val_dataset(cfg, tcfg),
+                mesh=mesh)
 
 
 def _run_loop(
@@ -582,6 +646,7 @@ def _run_loop(
     val_fn=None,
     val_loader=None,
     eval_hook=None,
+    mesh: Mesh = Mesh(1),
 ) -> TrainState:
     """Training loop with periodic logging / validation / checkpointing.
 
@@ -593,15 +658,21 @@ def _run_loop(
     `ckpt_every_n_steps` steps, and at the last with `save_last`, the
     state is checkpointed. A fresh run purges an earlier run's steps and
     `best/`; a resumed one keeps them and continues the data order where
-    the checkpoint left it."""
+    the checkpoint left it.
+
+    On a `mesh` of several ranks every rank steps, validates and takes
+    part in each save (the ranks' generator states are gathered into it),
+    but only rank 0 logs, purges, writes the checkpoint (as orbax's
+    primary host does) and runs `eval_hook`; a barrier follows each save."""
+    primary = mesh.rank == 0
     if len(loader) == 0:
         raise ValueError(
             "empty train loader: dataset smaller than batch_size "
             f"({len(loader.dataset)} < {loader.batch_size})"
         )
-    logger = MetricLogger(tcfg.log_dir)
+    logger = MetricLogger(tcfg.log_dir) if primary else None
     ckpt_writer = CheckpointWriter(tcfg.ckpt_dir, max_to_keep=tcfg.ckpt_max_keep)
-    if not resume:
+    if not resume and primary:
         # Keyed on the resume FLAG, not `start_step == 0`: a legitimate
         # resume can sit at step 0 and must not be purged.
         n_stale = ckpt_writer.purge()
@@ -627,9 +698,14 @@ def _run_loop(
     loader.seek(start_step)
 
     def save(writer, label):
-        seconds = writer.save(state, step)
-        print(f"# {label} checkpoint step {step}: {seconds:.3f} s to {writer.dir}/{step}",
-              flush=True)
+        if mesh.world > 1:
+            state.rank_generators = collectives.gather_objects(state.generator.get_state(),
+                                                               mesh.group)
+        if primary:
+            seconds = writer.save(state, step)
+            print(f"# {label} checkpoint step {step}: {seconds:.3f} s to {writer.dir}/{step}",
+                  flush=True)
+        collectives.barrier(mesh.group)
 
     try:
         t0 = time.time()
@@ -644,7 +720,7 @@ def _run_loop(
                 if profiler is not None and step >= prof_start + prof_n:
                     _stop_profiler(profiler, device)
                     profiler, prof_n = None, 0
-                if step % tcfg.log_every_n_steps == 0:
+                if primary and step % tcfg.log_every_n_steps == 0:
                     values = {k: float(v) for k, v in metrics.items()}
                     dt = time.time() - t0
                     lr = state.optimizer.last_lr  # None before the first update
@@ -659,7 +735,8 @@ def _run_loop(
                 ):
                     vm = _run_validation(val_fn, val_loader, tcfg.limit_val_batches, step,
                                          device)
-                    logger.log(step, {f"val_{k}": v for k, v in vm.items()})
+                    if primary:
+                        logger.log(step, {f"val_{k}": v for k, v in vm.items()})
                     if monitor_key in vm and vm[monitor_key] < best_val:
                         best_val = vm[monitor_key]
                         if best_writer is None:
@@ -667,7 +744,7 @@ def _run_loop(
                             best_writer = CheckpointWriter(
                                 os.path.join(tcfg.ckpt_dir, "best"), max_to_keep=1)
                         save(best_writer, "best")
-                    if eval_hook is not None:
+                    if eval_hook is not None and primary:
                         eval_hook(state, step)
                     t0 = time.time()
                 if step % tcfg.ckpt_every_n_steps == 0 or (
@@ -683,7 +760,8 @@ def _run_loop(
         ckpt_writer.close()
         if best_writer is not None:
             best_writer.close()
-        logger.close()
+        if logger is not None:
+            logger.close()
     return state
 
 

@@ -215,7 +215,8 @@ def test_gan_alternate_branch_follows_the_step_across_a_resume(tmp_path, monkeyp
 
 def test_entry_points_need_cuda_or_an_explicit_cpu(tmp_path):
     """Without CUDA a stage, the CLI and tokenize-data raise unless the
-    caller asks for the CPU; more than one device raises; a gvid source
+    caller asks for the CPU; more data ranks than processes raise JAX's
+    oversubscription message, a model axis names the TP slice; a gvid source
     with no file for the split raises before anything is written."""
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the entry points would run")
@@ -229,8 +230,12 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(tmp_path):
         tcli.main(["tokenize-data", "--config", cfg_path, "--out", str(tmp_path / "tok"),
                    "--allow-random-params"])
     cfg.trainer.n_data = 2
-    with pytest.raises(NotImplementedError, match="distributed training is not ported"):
+    with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
         ttrainer.train_tokenizer(cfg, device="cpu")
+    cfg.trainer.n_data, cfg.trainer.n_model = 1, 2
+    with pytest.raises(NotImplementedError, match="the TP slice"):
+        ttrainer.train_tokenizer(cfg, device="cpu")
+    cfg.trainer.n_model = 1
     cfg.trainer.n_data, cfg.data.source, cfg.data.root = 1, "gvid", str(tmp_path)
     with pytest.raises(FileNotFoundError, match="train.gvid"):
         ttrainer.train_tokenizer(cfg, device="cpu")
