@@ -3477,7 +3477,23 @@ DP_TOK_BATCH, DP_GENIE_BATCH = (4, 8, 64, 64, 3), (4, 16, 64, 64, 3)
 # 29b's copy of tokenize.yaml: at its 1e-3, and at 1e-4, the run diverges
 # within a few steps (loss 19.6 to 162 in 5 steps at 1e-4), and two
 # diverging runs part by more than PIX_TOL whatever the order of their sums.
+# The later steps are held to PIX_TOL; the first step, which no lr reaches,
+# is held tightly (DP_FIRST_STEP_TOL).
 DP_LR = 1e-5
+# 29b's first step on two ranks against one process on the global batch,
+# in f32 with TF32 off: the loss within `loss` relative; the gradients the
+# step applies (summed over the ranks, before the clip) within `together`
+# of their norm, all tensors as one vector, and each tensor within
+# `tensor` of its own norm. The gaps are f32 rounding: an order of sums
+# that the ranks' halves change (on an H100, 1.8e-4 together and 5.2e-4 at
+# most, on the discriminator's biases, whose first gradient is a
+# near-cancelling difference of fake and real frames; PERF.md). A missing
+# reduction or a wrong seed moves the gradient by a factor.
+DP_FIRST_STEP_TOL = {"loss": 1e-5, "together": 1e-3, "tensor": 2e-3}
+# The bit-balance loss's input gradient on two ranks against one process,
+# relative to its largest |element| (f32; the statistics nest, so this
+# fails if a rank's backward sees only its own rows of rms and the means).
+DP_BALANCE_TOL = 1e-5
 
 
 def _free_port() -> int:
@@ -3511,10 +3527,28 @@ class _AllReduceBytes:
         return False
 
 
-def _spy_applied(opt, trainable) -> tuple:
+def _spy_applied(opt, trainable, before_clip: bool = False) -> tuple:
     """`({name: gradient}, undo)`: the gradients as AdamW applies them
-    (reduced, clipped), filled at each update of `opt` until `undo()`."""
+    (reduced, clipped), filled at each update of `opt` until `undo()`;
+    with `before_clip`, as the step has summed them over the ranks (with
+    a group or without), before the clip."""
+    from open_genie_tpu_torch.parallel import collectives
+
     applied = {}
+    if before_clip:
+        reduce = collectives.all_reduce_tensors_
+
+        def spy(tensors, *args, **kwargs):
+            out = reduce(tensors, *args, **kwargs)
+            if tensors and tensors[0] is trainable[0][1].grad:
+                applied.update({n: t.detach().clone() for (n, _), t in zip(trainable, tensors)})
+            return out
+
+        def undo():
+            collectives.all_reduce_tensors_ = reduce
+
+        collectives.all_reduce_tensors_ = spy
+        return applied, undo
     adamw_step = opt.adamw.step
 
     def spy(*args, **kwargs):
@@ -3526,6 +3560,23 @@ def _spy_applied(opt, trainable) -> tuple:
 
     opt.adamw.step = spy
     return applied, undo
+
+
+def _trainable(state) -> list:
+    """`(name, parameter)` of each parameter a TrainState's optimizer
+    steps, in its order."""
+    ids = {id(p) for p in state.optimizer.params}
+    return [(n, p) for n, p in state.module.named_parameters() if id(p) in ids]
+
+
+def _grad_rel_errs(got: dict, ref: dict) -> dict:
+    """`||got - ref|| / ||ref||` of each tensor (f64 norms), largest first,
+    and under "" that of all the tensors together."""
+    errs = {n: ((got[n].double() - r.double()).norm() / r.double().norm().clamp_min(1e-30)).item()
+            for n, r in ref.items()}
+    whole = (sum((got[n].double() - r.double()).square().sum() for n, r in ref.items())
+             / sum(r.double().square().sum() for r in ref.values())).sqrt().item()
+    return {"": whole, **dict(sorted(errs.items(), key=lambda kv: -kv[1]))}
 
 
 def _first_difference(a: dict, b: dict) -> str:
@@ -3656,7 +3707,8 @@ def dp_rank_main(work: Path) -> int:
 
     _import_port()
     from open_genie_tpu_torch.cli import main as cli
-    from open_genie_tpu_torch.ops.lfq import lfq_avg_entropy
+    from open_genie_tpu_torch.ops.lfq import lfq_avg_entropy, lfq_bit_balance_loss
+    from open_genie_tpu_torch.parallel import collectives
     from open_genie_tpu_torch.parallel.mesh import batch_sharding, init_distributed, make_mesh
     from open_genie_tpu_torch.train import trainer as ttrainer
     from open_genie_tpu_torch.train.loop import CheckpointWriter
@@ -3665,7 +3717,7 @@ def dp_rank_main(work: Path) -> int:
     dev = torch.device(spec["device"])
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
-    assert init_distributed(device=dev)
+    assert init_distributed(backend="gloo", device=dev)
     rank, group = dist.get_rank(), dist.group.WORLD
     rows = batch_sharding(make_mesh()).rows(512)
     x = torch.randn(512, 18, generator=torch.Generator(device=dev).manual_seed(spec["seed"]),
@@ -3673,17 +3725,26 @@ def dp_rank_main(work: Path) -> int:
     _reset_counts()
     h = lfq_avg_entropy(x, 100.0, group=group)
     q = h.grad_fn.saved_tensors[1]
-    h.backward()
+    collectives.backward(h, group)
     _sync(dev)
     out = {"q": q.cpu(), "dx": x.grad.cpu(), "h": h.item(), "split_counts": _read_counts()}
+    xb = x.detach().clone().requires_grad_()
+    balance = lfq_bit_balance_loss(xb, group=group)
+    collectives.backward(balance, group)
+    out.update(balance=balance.item(), balance_dx=xb.grad.cpu())
 
-    steps, written = [], []
+    steps, written, first = [], [], {}
     make_step, save = ttrainer.make_train_step, CheckpointWriter.save
 
     def timed_make_train_step(*args, **kwargs):
         step = make_step(*args, **kwargs)
+        # The first run's first step: the gradients it applies, summed
+        # over the ranks, before the clip.
+        spy = None if first else _spy_applied(step.state.optimizer, _trainable(step.state),
+                                              before_clip=True)
 
         def timed(batch, **kw):
+            nonlocal spy
             _sync(dev)
             _reset_counts()
             t0 = time.perf_counter()
@@ -3691,6 +3752,10 @@ def dp_rank_main(work: Path) -> int:
             _sync(dev)
             steps.append({"ms": (time.perf_counter() - t0) * 1e3, "launches": _read_counts(),
                           "shapes": _read_shapes()})
+            if spy is not None:
+                first.update(grads=spy[0], loss=metrics["loss"].item())
+                spy[1]()
+                spy = None
             return metrics
 
         return timed
@@ -3709,7 +3774,9 @@ def dp_rank_main(work: Path) -> int:
             (shutil.copytree if src.is_dir() else shutil.copy)(src, Path(spec["ckpt_b"]) / name)
     dist.barrier(group)
     cli(["train", "tokenizer", "--config", spec["cfg_b"], "--resume", "--device", dev.type])
-    out.update(steps=steps, written=written)
+    out.update(steps=steps, written=written,
+               first_grads={n: g.cpu() for n, g in first["grads"].items()},
+               first_loss=first["loss"])
     torch.save(out, work / f"rank{rank}.pt")
     dist.destroy_process_group()
     return 0
@@ -3720,7 +3787,9 @@ def _dp_reference(cfg_path: str, dev, steps: int) -> tuple:
     module, optimizer and step (`make_train_step`, no group) on the
     concatenation of the two ranks' batches (their loaders, `Mesh(2, 1,
     r)`), with the frame picks each rank's generator draws; f32, TF32
-    off. Returns the per-step losses, ms and the parameters after."""
+    off. Returns the per-step losses, ms, the parameters after, and the
+    loss and gradients of the first step (as
+    `_spy_applied(before_clip=True)`)."""
     from open_genie_tpu_torch.parallel.mesh import Mesh, global_batch, rank_seed
     from open_genie_tpu_torch.train.config import load_config
     from open_genie_tpu_torch.train.loop import make_optimizer, make_train_step
@@ -3746,21 +3815,27 @@ def _dp_reference(cfg_path: str, dev, steps: int) -> tuple:
                          frozen_mask=frozen_param_mask(module, ("perc_crit",)))
     step = make_train_step(module, opt, loss_kwargs=_entropy_anneal_kwargs(mcfg))
     k = min(mcfg.gan_frames_per_batch, cfg.data.num_frames)
-    losses, times = [], []
+    losses, times, first = [], [], {}
     for i, parts in enumerate(zip(*loaders)):
         if i == steps:
             break
-        video = global_batch([p.to(dev) for p in parts])
         b, t = parts[0].shape[:2]
         picks = [(random_frame_idxs(g, b, t, k, dev), random_frame_idxs(g, b, t, k, dev))
                  for g in gens]
+        video = global_batch([p.to(dev) for p in parts])
+        if i == 0:
+            grads, undo = _spy_applied(step.state.optimizer, _trainable(step.state),
+                                       before_clip=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = step(video, perc_idxs=torch.cat([p for p, _ in picks]),
                        gan_idxs=torch.cat([g for _, g in picks]))
         losses.append(metrics["loss"].item())
         times.append((time.perf_counter() - t0) * 1e3)
-    return losses, times, {n: p.detach().cpu() for n, p in module.named_parameters()}
+        if i == 0:
+            undo()
+            first = {"grads": {n: g.cpu() for n, g in grads.items()}, "loss": losses[0]}
+    return losses, times, {n: p.detach().cpu() for n, p in module.named_parameters()}, first
 
 
 def f32_backward_check(label: str, shapes: set, dev) -> float:
@@ -3806,6 +3881,7 @@ def phase_dp_two_ranks(dev, smi: str) -> dict:
         lfq_avg_probs,
         lfq_entropy_grad,
     )
+    from open_genie_tpu_torch.ops.lfq import lfq_bit_balance_loss
     from open_genie_tpu_torch.train.loop import all_steps, load_checkpoint
 
     (HERE / "build").mkdir(exist_ok=True)
@@ -3823,7 +3899,7 @@ def phase_dp_two_ranks(dev, smi: str) -> dict:
                 "ckpt_a": str(runs["a"][0] / "ckpt"), "ckpt_b": str(runs["b"][0] / "ckpt")}
         (work / "spec.json").write_text(json.dumps(spec))
         env = {**os.environ, "OGT_COORDINATOR": f"localhost:{_free_port()}",
-               "OGT_NUM_PROCESSES": "2", "OGT_BACKEND": "gloo"}
+               "OGT_NUM_PROCESSES": "2"}
         t0 = time.perf_counter()
         logs = [open(work / f"rank{r}.log", "w") for r in range(2)]
         procs = [subprocess.Popen(
@@ -3869,15 +3945,46 @@ def phase_dp_two_ranks(dev, smi: str) -> dict:
         assert e_q <= 1e-5 and e_dx <= 1e-4, "the split K5/K6 disagree with the float64 sweep"
         assert all(c["lfq_entropy_fwd"] == 1 and c["lfq_entropy_bwd"] == 1 for c in split_counts)
 
+        # The bit balance, whose statistics nest (rms inside tanh, the means
+        # inside the correlations), split 256 + 256 against one process.
+        xb = x.clone().requires_grad_()
+        balance = lfq_bit_balance_loss(xb)
+        balance.backward()
+        bal_dx = torch.cat([r["balance_dx"] for r in ranks]).to(dev)
+        e_bal = ((bal_dx - xb.grad).abs().max() / xb.grad.abs().max()).item()
+        print(f"[dp bit balance] (512, 18) split 256 + 256 over gloo: loss "
+              f"{ranks[0]['balance']:.7f} (one process {balance.item():.7f}), input gradient "
+              f"{e_bal:.3g} of max|dx| off one process's (tolerance {DP_BALANCE_TOL:g})")
+        assert ranks[0]["balance"] == ranks[1]["balance"], "the ranks' bit balances differ"
+        assert e_bal <= DP_BALANCE_TOL, f"the split bit balance's gradient is off by {e_bal:.3g}"
+
         # cli train on two ranks against one process on the same batches.
         steps = [r["steps"] for r in ranks]
         with _Tf32Off():
-            ref_losses, ref_ms, ref_params = _dp_reference(spec["cfg_a"], dev, DP_STEPS)
+            ref_losses, ref_ms, ref_params, ref_first = _dp_reference(spec["cfg_a"], dev,
+                                                                      DP_STEPS)
         records = read_jsonl(runs["a"][0] / "logs")
         _finite_records("dp trainer", records)
         losses = [r["loss"] for r in records if "loss" in r]
         print(f"[dp trainer] per-step loss on two ranks {[round(v, 5) for v in losses]}, one "
               f"process on the same global batches {[round(v, 5) for v in ref_losses]}")
+        # The first step, before any update: loss and reduced gradients.
+        grads = ranks[0]["first_grads"]
+        for n, g in grads.items():
+            assert torch.equal(g, ranks[1]["first_grads"][n]), f"the ranks' first {n} differ"
+        errs = _grad_rel_errs(grads, ref_first["grads"])
+        top = [n for n in errs if n][:4]
+        g_err, l_err = errs[top[0]], abs(ranks[0]["first_loss"] / ref_first["loss"] - 1)
+        print(f"[dp trainer] {smi}: first step on two ranks against one process on the global "
+              f"batch (f32, TF32 off): loss {l_err:.3g} relative, the {len(grads)} reduced "
+              f"gradients before the clip {errs['']:.3g} of their norm together, at most "
+              f"{g_err:.3g} tensor by tensor ("
+              + ", ".join(f"{n} {errs[n]:.3g}" for n in top)
+              + f"); tolerances {DP_FIRST_STEP_TOL}")
+        assert set(grads) == set(ref_first["grads"]), "the first step's gradients differ"
+        assert l_err <= DP_FIRST_STEP_TOL["loss"], f"first-step loss off by {l_err:.3g}"
+        assert errs[""] <= DP_FIRST_STEP_TOL["together"], f"first-step gradients off by {errs['']:.3g}"
+        assert g_err <= DP_FIRST_STEP_TOL["tensor"], f"first-step {top[0]} off by {g_err:.3g}"
         np.testing.assert_allclose(losses, ref_losses, **PIX_TOL)
         ckpt, at = load_checkpoint(spec["ckpt_a"])
         assert at == DP_STEPS
@@ -3916,7 +4023,9 @@ def phase_dp_two_ranks(dev, smi: str) -> dict:
               f"both ranks' start-up")
         return {"launches": steps[0][-1]["launches"], "split_launches": split_counts[0],
                 "rank_ms": ms, "one_process_ms": one_ms, "q_sweep_rel_err": e_q,
-                "dx_sweep_rel_err": e_dx, "param_max_abs_err": p_err, "seconds": seconds}
+                "dx_sweep_rel_err": e_dx, "param_max_abs_err": p_err, "seconds": seconds,
+                "balance_dx_rel_err": e_bal, "first_loss_rel_err": l_err,
+                "first_grad_rel_err": errs[""], "first_grad_tensor_rel_err": g_err}
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -19,8 +19,8 @@ Usage:
 A model runs on the card unless `--device cpu` is given; `make-data` runs
 on the host. `train` and `tokenize-data` run on several devices when
 launched once per rank with the JAX package's variables: `OGT_COORDINATOR`
-(`host:port` of rank 0), `OGT_NUM_PROCESSES`, `OGT_PROCESS_ID` (and
-`OGT_BACKEND`, default NCCL on the card, gloo on the CPU); rank `r` takes
+(`host:port` of rank 0), `OGT_NUM_PROCESSES` and `OGT_PROCESS_ID`, over
+NCCL on the card and gloo on the CPU; rank `r` takes
 `cuda:{r % device_count}`. `train` is then data-parallel over the ranks
 (only rank 0 prints the step lines and writes checkpoints), and
 `tokenize-data` shards the clips over them. `generate`, `play` and `eval` compute in f32, as the JAX

@@ -215,9 +215,11 @@ class LfqAvgEntropy(torch.autograd.Function):
     With a data-parallel `group` (`parallel.collectives`), `x` is this
     rank's rows of the global batch: K5's local mean times the local rows
     is all-reduced and divided by the global rows, so every rank takes the
-    entropy of the global `q`, and K6's gradient, with `w` from that `q`,
-    is divided by the global rows: `dH/dx` for this rank's rows exactly. A
-    rank may hold no rows (a strided subsample can miss its block)."""
+    entropy of the global `q`; the backward all-reduces the cotangent of
+    `H` (`collectives.backward` seeds each rank with 1/world) and scales
+    K6's gradient, with `w` from that `q`, by it over the global rows:
+    `dL/dx` for this rank's rows exactly. A rank may hold no rows (a
+    strided subsample can miss its block)."""
 
     @staticmethod
     def forward(ctx, x, beta: float, eps: float, group=None):
@@ -230,7 +232,7 @@ class LfqAvgEntropy(torch.autograd.Function):
             total, rows = collectives.global_sums([local, n], group)
             q = total / rows
         ctx.save_for_backward(x, q)
-        ctx.beta, ctx.eps, ctx.rows = beta, eps, rows
+        ctx.beta, ctx.eps, ctx.rows, ctx.group = beta, eps, rows, group
         return entropy_of(q, eps)
 
     @staticmethod
@@ -238,6 +240,7 @@ class LfqAvgEntropy(torch.autograd.Function):
     def backward(ctx, g):
         x, q = ctx.saved_tensors
         eps = ctx.eps
+        g = collectives.all_reduce_sum(g, ctx.group)
         if x.shape[0] == 0:
             return torch.zeros_like(x), None, None, None
         # dH/dq_j = -w_j: 1 + log q_j above the clamp, log(eps) below it

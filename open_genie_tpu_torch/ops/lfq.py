@@ -170,12 +170,9 @@ def lfq_loss(
     def subsample(v):
         if frac_sample >= 1.0:
             return v
-        n = v.shape[0]
-        if not collectives.reduces(group):
-            k = max(1, int(n * frac_sample))
-            return v[:: max(1, n // k)][:k]
         # Global rows 0, s, ..., (k - 1) s of world x n; this rank holds
         # rows [first, first + n).
+        n = v.shape[0]
         n_all = n * collectives.world_size(group)
         k = max(1, int(n_all * frac_sample))
         stride = max(1, n_all // k)

@@ -2,24 +2,32 @@
 
 The JAX package's step on an `n_data` mesh computes the single-device step
 on the global batch (GSPMD). A rank of the port holds only its rows, so
-every batch statistic of a loss is reduced across the ranks here, in a way
-that keeps each rank's backward exactly `dL/dx_i` for its own rows `i`:
+every batch statistic of a loss is reduced across the ranks here, and
+every rank then holds the same global loss `L`. Its backward is reverse
+mode over the ranks' joint graph:
 
-  * `global_sums` all-reduces in the forward and passes the gradient
-    straight through in the backward (the local summand's share), so a
-    loss written as `f(global_sums(local parts))` has the global value on
-    every rank, and the sum over ranks of the parameter gradients is the
-    global gradient: the step all-reduces them by sum
-    (`all_reduce_tensors_`), never by mean;
-  * a separable term is `global_mean(local sum, local count)`; a
-    non-linear statistic (a batch mean inside an entropy, a covariance)
-    is built from `global_sums` of its local sums.
+  * `global_sums` all-reduces in the forward, and in the backward
+    all-reduces the cotangents: every rank's use of the sum reaches every
+    rank's summands;
+  * `backward(loss, group)` seeds each rank's copy of `L` with 1/world, so
+    the copies add up to `L` once.
+
+Each rank's backward then yields `dL/dx_i` for its own rows `i` exactly,
+however the statistics nest (a statistic of values that depend on another
+statistic, as the bit balance's correlations of `tanh(x / rms)`), and the
+sum over the ranks of the parameter gradients is `dL/dparams`: the step
+all-reduces them by sum (`all_reduce_tensors_`), never by mean. A
+separable term is `global_mean(local sum, local count)`; a non-linear
+statistic (a batch mean inside an entropy, a covariance) is built from
+`global_sums` of its local sums. An autograd Function that reduces in its
+own forward (`LfqAvgEntropy`) all-reduces its cotangent likewise.
 
 `group` is a `torch.distributed` process group, or None outside a
 distributed run. A group of one rank reduces nothing either: with None or
-one rank, every helper is the plain local op (`x.mean()`, `s / n`), with
-no launch added, so a step on one rank is the step without a group bit
-for bit.
+one rank, every helper is the plain local op (`x.mean()`, `s / n`,
+`loss.backward()`), with no launch added, so a step on one rank is the
+step without a group bit for bit; only `all_reduce_tensors_` still runs
+the gradients' all-reduce on a group of one rank (a copy).
 """
 from __future__ import annotations
 
@@ -44,25 +52,44 @@ def reduces(group) -> bool:
     return world_size(group) > 1
 
 
+def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
+    """`t` summed over the ranks, as a new tensor, outside autograd; `t`
+    itself when nothing reduces."""
+    if not reduces(group):
+        return t
+    out = t.detach().clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
 class _SumAcrossRanks(torch.autograd.Function):
-    """Forward: the all-reduced sum. Backward: the incoming gradient, the
-    derivative of the sum by this rank's summand."""
+    """Forward: the all-reduced sum. Backward: the all-reduced sum of the
+    cotangents, the derivative of every rank's use of the sum by this
+    rank's summand."""
 
     @staticmethod
     def forward(ctx, t: torch.Tensor, group) -> torch.Tensor:
-        out = t.clone()
-        dist.all_reduce(out, group=group)
-        return out
+        ctx.group = group
+        return all_reduce_sum(t, group)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return all_reduce_sum(g, ctx.group), None
+
+
+def backward(loss: torch.Tensor, group) -> None:
+    """The backward of `loss`, the global loss that every rank of `group`
+    holds: seeded with 1/world on each rank (see above); `loss.backward()`
+    when nothing reduces."""
+    if reduces(group):
+        loss = loss / world_size(group)
+    loss.backward()
 
 
 def _sums_f64(values: Sequence[Number], group) -> List[torch.Tensor]:
     """Each value as a float64 tensor summed over the ranks in one
-    all-reduce (float64: counts stay exact past 2^24, sums lose nothing);
-    the gradient passes to this rank's summands."""
+    all-reduce (float64: counts stay exact past 2^24, sums lose nothing),
+    through `_SumAcrossRanks`."""
     device = next((v.device for v in values if isinstance(v, torch.Tensor)), None)
     tensors = [v.to(torch.float64) if isinstance(v, torch.Tensor)
                else torch.tensor(float(v), dtype=torch.float64, device=device) for v in values]
@@ -73,7 +100,7 @@ def _sums_f64(values: Sequence[Number], group) -> List[torch.Tensor]:
 
 def global_sums(values: Sequence[Number], group) -> List[Number]:
     """Each value summed over the ranks, in one all-reduce: a tensor in its
-    shape and dtype, its gradient passed to this rank's summand; a number
+    shape and dtype, differentiable (`_SumAcrossRanks`); a number
     (a count) as a float64 scalar. The values as given when nothing
     reduces."""
     if not reduces(group):

@@ -46,9 +46,8 @@ def init_distributed(
     The arguments, or the JAX package's variables `OGT_COORDINATOR`
     (`host:port` of rank 0's rendezvous), `OGT_NUM_PROCESSES` and
     `OGT_PROCESS_ID`, name the run; `torch.distributed.init_process_group`
-    joins it over `tcp://<coordinator>`. `backend` (or `OGT_BACKEND`)
-    defaults to NCCL for a CUDA `device` (the default) and gloo for the
-    CPU. Returns False when nothing is configured: one process, as the
+    joins it over `tcp://<coordinator>`. `backend` defaults to NCCL
+    for a CUDA `device` (the default) and gloo for the CPU. Returns False when nothing is configured: one process, as the
     JAX package's own single-process meaning. True when the process is
     in a run (this call joined it, or an earlier one did).
     """
@@ -69,8 +68,7 @@ def init_distributed(
                          "processes and this process's id (OGT_COORDINATOR, "
                          "OGT_NUM_PROCESSES, OGT_PROCESS_ID)")
     if backend is None:
-        backend = os.environ.get("OGT_BACKEND") or (
-            "nccl" if torch.device(device or "cuda").type == "cuda" else "gloo")
+        backend = "nccl" if torch.device(device or "cuda").type == "cuda" else "gloo"
     dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",
                             world_size=num_processes, rank=process_id)
     return True

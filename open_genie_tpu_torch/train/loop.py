@@ -239,16 +239,18 @@ class _LossAndBackward(nn.Module):
     """Runs `module(batch, **kwargs)` and the backward of its loss in one
     call, so that under `functional_call` the bf16 parameter copies are
     still in place when activation checkpointing recomputes a layer during
-    the backward."""
+    the backward. With a data-parallel `group` the loss is the global
+    batch's, held by every rank (`collectives.backward`)."""
 
-    def __init__(self, module: nn.Module):
+    def __init__(self, module: nn.Module, group=None):
         super().__init__()
         self.module = module
+        self.group = group
 
     def forward(self, batch, kwargs):
         loss, metrics = self.module(batch, **kwargs)
         loss = loss.float()
-        loss.backward()
+        collectives.backward(loss, self.group)
         return loss.detach(), metrics
 
 
@@ -286,7 +288,7 @@ def make_train_step(
         state = TrainState(state, optimizer)
     module, optimizer = state.module, state.optimizer
     loss_kwargs = dict(loss_kwargs or {})
-    run = _LossAndBackward(module)
+    run = _LossAndBackward(module, group)
     pass_generator = takes_kwarg(module, "generator")
     pass_group = group is not None and takes_kwarg(module, "group")
     pass_rate = takes_kwarg(module, "rate_generator")

@@ -19,6 +19,12 @@ results, while the test process computes JAX's references:
   * the naive control on the same data: each rank's local means, the
     gradients averaged over the ranks (plain DDP). It must miss the
     tolerance that the data-parallel step meets;
+  * the bit-balance loss alone, and the whole LFQ loss (13 bits, entropy,
+    bit balance, a 0.3 stride), on each rank's rows of a batch of
+    features: the value and the input gradient of one process within
+    LFQ_TOL. The bit balance's statistics nest (the rms inside `tanh`, the
+    bit means inside the correlations), so a rank's backward must reach
+    every rank's use of them;
   * gradient accumulation (2 micro-steps of the dynamics step): one
     gradient all-reduce per applied update, none for the micro-step that
     applies nothing, and the applied mean equal to one process's on the
@@ -31,7 +37,8 @@ results, while the test process computes JAX's references:
     resumed at step 3 ending on the uninterrupted run's parameters;
   * `cli tokenize-data` on two ranks: the shards of one process.
 
-Tolerances: the loss within 1e-5 relative and every metric within rtol
+Tolerances: the LFQ losses' input gradients within 1e-5 of their
+largest |element|, their values within 1e-6 relative; the loss within 1e-5 relative and every metric within rtol
 1e-4 / atol 1e-6 (the one-process tests'); every gradient applied within
 `tools/parity_check.py`'s atol 2e-3 / rtol 2e-2; the update within 1e-6
 where that check fixes the sign of JAX's applied gradient (|g| > 4e-3),
@@ -75,6 +82,8 @@ WORLD, LR, STEPS = 2, 1e-4, 6
 LOSS_RTOL = 1e-5
 METRIC_TOL = dict(rtol=1e-4, atol=1e-6)
 GRAD_TOL = dict(atol=ATOL, rtol=RTOL)
+LFQ_TOL = dict(value=1e-6, grad=1e-5)
+LFQ_KWARGS = dict(entropy_weight=0.1, bit_balance_weight=1.0, frac_sample=0.3)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DYNAMICS = dict(desc=(("space-time_attn", {"n_rep": 2, "n_embd": 32, "n_head": 2, "d_head": 16}),),
                 tok_vocab=64, act_vocab=16, embed_dim=32)
@@ -268,12 +277,14 @@ def runs(tmp_path_factory):
         torch.save(spec, work / f"case_{name}.pt")
     rollout, whole = _rollout_spec(cases["genie"][0])
     torch.save(rollout, work / "rollout.pt")
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((4, 8, 13)).astype(np.float32))
+    torch.save({"x": x, "lfq_kwargs": LFQ_KWARGS}, work / "lfq.pt")
     for name in ("A", "B"):
         (work / f"cli_{name}.yaml").write_text(
             TOKENIZER_YAML.format(steps=STEPS, work=work, name=name))
     (work / "genie.yaml").write_text(GENIE)
     env = {**os.environ, "PYTHONPATH": REPO, "OGT_COORDINATOR": f"localhost:{_free_port()}",
-           "OGT_NUM_PROCESSES": str(WORLD), "OGT_BACKEND": "gloo"}
+           "OGT_NUM_PROCESSES": str(WORLD)}
     procs = []
     try:
         for rank in range(WORLD):
@@ -296,7 +307,7 @@ def runs(tmp_path_factory):
     assert codes == [0] * WORLD, f"rank exit codes {codes}:\n" + "\n".join(
         log[-4000:] for log in logs)
     ranks = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(WORLD)]
-    return refs, whole, ranks, work, logs
+    return refs, whole, ranks, work, logs, x
 
 
 def _misses(got: dict, ref: dict) -> list:
@@ -318,7 +329,7 @@ def test_dp_step_matches_the_jax_mesh_step(runs, case):
     """Loss, every metric, every applied gradient and every parameter after
     the step on each rank against JAX's step on `make_mesh(n_data=2)`;
     the ranks bit-equal; the naive per-rank step misses the tolerance."""
-    refs, _, ranks, _, _ = runs
+    refs, _, ranks, *_ = runs
     ref = refs[case]
     for rank, out in enumerate(ranks):
         got = out[case]
@@ -345,8 +356,28 @@ def test_dp_step_matches_the_jax_mesh_step(runs, case):
     assert _misses(ranks[0][case]["naive"], ref), f"the naive {case} step met the tolerance"
 
 
+@pytest.mark.parametrize("name", ["bit_balance", "lfq_loss"])
+def test_dp_lfq_input_gradient_matches_one_process(runs, name):
+    """Each rank's input gradient of the LFQ loss on its rows, joined in
+    rank order, against one process's on the whole batch (the same f32
+    math summed in another order), within LFQ_TOL."""
+    from open_genie_tpu_torch.ops.lfq import lfq_bit_balance_loss, lfq_loss
+
+    *_, x = runs
+    v = x.clone().requires_grad_()
+    loss = (lfq_bit_balance_loss(v) if name == "bit_balance" else
+            lfq_loss(v, torch.where(v > 0, 1.0, -1.0), **LFQ_KWARGS)[0])
+    loss.backward()
+    ranks = [out["lfq"][name] for out in runs[2]]
+    for got, _ in ranks:
+        np.testing.assert_allclose(got.item(), loss.item(), rtol=LFQ_TOL["value"])
+    dx = global_batch([g for _, g in ranks])
+    err = ((dx - v.grad).abs().max() / v.grad.abs().max()).item()
+    assert err <= LFQ_TOL["grad"], f"{name}: input gradient off by {err:.3g} of its max"
+
+
 def test_dp_accumulation_reduces_once_per_applied_update(runs):
-    _, _, ranks, _, _ = runs
+    _, _, ranks, *_ = runs
     one = ranks[0]["accumulation"]["one"]
     for out in ranks:
         dp = out["accumulation"]["dp"]
@@ -358,7 +389,7 @@ def test_dp_accumulation_reduces_once_per_applied_update(runs):
 
 
 def test_dp_rollout_rows_equal_the_one_process_rollout(runs):
-    _, whole, ranks, _, _ = runs
+    _, whole, ranks, *_ = runs
     assert torch.equal(global_batch([out["rollout"] for out in ranks]), whole)
 
 
@@ -366,7 +397,7 @@ def test_cli_train_on_two_ranks(runs):
     """Disjoint strides, rank 0 alone logs and writes one checkpoint
     directory, and the run resumed at step 3 ends on the uninterrupted
     run's parameters and logs its losses."""
-    _, _, ranks, work, logs = runs
+    _, _, ranks, work, logs, _ = runs
     train = [{i for n, i in out["cli"]["loaded"] if n == 24} for out in ranks]
     assert train[0] and train[1] and not train[0] & train[1]
     assert all(i % WORLD == r for r, idx in enumerate(train) for i in idx)

@@ -148,6 +148,10 @@ def test_collectives_without_a_group_are_the_local_ops():
     assert torch.equal(x, before)
     assert collectives.gather_objects("state", None) == ["state"]
     assert (collectives.world_size(None), collectives.rank(None)) == (1, 0)
+    assert collectives.all_reduce_sum(x, None) is x
+    w = x.clone().requires_grad_()
+    collectives.backward((w * w).sum(), None)  # seeded with 1, as loss.backward()
+    assert torch.equal(w.grad, 2 * x)
 
 
 def test_init_distributed_reads_the_jax_variables(monkeypatch):

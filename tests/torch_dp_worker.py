@@ -1,18 +1,19 @@
 """One rank of `tests/test_torch_distributed.py` (imports no JAX).
 
 Run once per rank, with the JAX package's variables (`OGT_COORDINATOR`,
-`OGT_NUM_PROCESSES`, `OGT_PROCESS_ID`, `OGT_BACKEND=gloo`) naming the run:
+`OGT_NUM_PROCESSES`, `OGT_PROCESS_ID`) naming the run, over gloo:
 
     python tests/torch_dp_worker.py <work dir>
 
 The test process has written into the work dir what the ranks run:
 `case_<name>.pt` (a train module's kind, config, weights, global batch
-and the noise JAX drew for it), `rollout.pt`, the YAMLs of two `cli train`
-runs and `genie.yaml`. For each case the rank takes its rows of the batch and of the
+and the noise JAX drew for it), `lfq.pt`, `rollout.pt`, the YAMLs of two
+`cli train` runs and `genie.yaml`. For each case the rank takes its rows of the batch and of the
 noise, runs the naive data-parallel step (local means, gradients averaged
 over the ranks: the control) and then `make_train_step(group=)`, and
 keeps the metrics, the gradients the optimizer applied and the
-parameters; then two micro-steps of gradient accumulation on the
+parameters; then the LFQ losses' value and input gradient on its rows
+of `lfq.pt`'s features; then two micro-steps of gradient accumulation on the
 dynamics case; then its rows of a rollout; then `cli train tokenizer` for 6
 steps and, resumed at step 3 in another directory, to 6 again, recording
 which dataset items it loaded and which checkpoints it wrote; then its
@@ -88,6 +89,26 @@ def run_case(spec, group):
     metrics = make_train_step(module, opt, group=group)(batch, **noise)
     return {"naive": naive, "metrics": _floats(metrics), "grads": applied,
             "params": {n: p.detach().clone() for n, p in module.named_parameters()}}
+
+
+def run_lfq(spec, group):
+    """`lfq_bit_balance_loss` alone and the whole `lfq_loss` on this rank's
+    rows of the features: `{name: (loss, input gradient)}`."""
+    from open_genie_tpu_torch.ops.lfq import lfq_bit_balance_loss, lfq_loss
+    from open_genie_tpu_torch.parallel import collectives
+    from open_genie_tpu_torch.parallel.mesh import batch_sharding, make_mesh, place_batch
+
+    x = place_batch(spec["x"], batch_sharding(make_mesh()))
+    losses = {"bit_balance": lambda v: lfq_bit_balance_loss(v, group=group),
+              "lfq_loss": lambda v: lfq_loss(v, torch.where(v > 0, 1.0, -1.0), group=group,
+                                             **spec["lfq_kwargs"])[0]}
+    out = {}
+    for name, fn in losses.items():
+        v = x.clone().requires_grad_()
+        loss = fn(v)
+        collectives.backward(loss, group)
+        out[name] = (loss.detach(), v.grad)
+    return out
 
 
 def run_accumulation(spec, group):
@@ -189,6 +210,7 @@ def main(work: str) -> None:
     out = {}
     for name in sorted(f[5:-3] for f in os.listdir(work) if f.startswith("case_")):
         out[name] = run_case(torch.load(os.path.join(work, f"case_{name}.pt")), group)
+    out["lfq"] = run_lfq(torch.load(os.path.join(work, "lfq.pt")), group)
     out["accumulation"] = run_accumulation(
         torch.load(os.path.join(work, "case_dynamics.pt")), group)
     out["rollout"] = run_rollout(torch.load(os.path.join(work, "rollout.pt")))
