@@ -182,7 +182,26 @@ directory, written by rank 0 alone; a run resumed at step 3 ending
 bit-identical to the uninterrupted one; the ranks' parameters bit-equal;
 K1, K3 and K4 in f32 at the ranks' shapes held to their twins; ms per step
 on each rank beside the one-process step.
-Every line of a time or a memory size in phases 16 to 29 carries the
+Phase 30 (`parallel/tensor.py`): two ranks on the one card over gloo, a
+mesh of data 1 x model 2, each a process of this script (`--tp-rank-of`).
+30a, `genie_train_config()` at genie.yaml's batch (4 x 16 x 64x64) with
+the weights split over the model axis: one f32 step (TF32 off) held to
+the one-process step of the same weights, batch and noise (loss within
+1e-5 relative, each gathered gradient within 1e-4 of its norm, the
+parameters within 2.1 lr), then one bf16 step whose every K1, K3 and K4
+launch takes the tensor cores at the per-rank shapes
+(`PATH_CASES["tp_train_step"]`, held to the twins by phases 3 and 7), the
+bytes all-reduced and all-gathered and the peak memory of a rank step,
+and ms per rank step beside the one-process step in turns. 30b, the
+flagship split of the JAX package's dry run (`genie_tp_flagship_config()`:
+a 512 x 262144 head and a 262144 x 512 token embedding split in two), one
+f32 step held to one process. 30c, `cli train genie` on a genie.yaml copy
+with `trainer.n_model: 2` (f32, lr 1e-5, 3 steps): one checkpoint, by
+rank 0, in the one-process layout, which `cli train genie --resume` on
+one process continues to the TP run's step 3 within 1e-5 relative. Then
+K1, K3 and K4 at the per-rank shapes as CUDA graphs beside SDPA, aten and
+the bounds (with phase 28's).
+Every line of a time or a memory size in phases 16 to 30 carries the
 card's name and power limit. The line before the last is a JSON summary
 of the kernels (`launches` on one step or call of the newest path that
 runs each, and the counts by path; the variant, and the kernel's, the
@@ -318,6 +337,13 @@ PATH_CASES = {
     "alt_decode": [],
     "alt_stream": [],
     "alt_train": [(64, 64, 64, False), (1024, 4, 64, True)],
+    # Phase 30a: the train step's attentions on one of two model ranks,
+    # each holding half of every attention's heads: the latent action's
+    # spatial at 64x64 and 32x32 and temporal, the frozen tokenizer's at
+    # 16x16 tokens, the dynamics' spatial and temporal.
+    "tp_train_step": [(128, 4096, 16, False), (128, 1024, 16, False), (128, 256, 16, False),
+                      (32768, 16, 16, True), (8192, 16, 16, True), (2048, 16, 16, True),
+                      (256, 256, 64, False), (4096, 16, 64, True)],
 }
 # The paths this checkout added last (phases 16 to 18): their new shapes are
 # timed in phase 19.
@@ -2250,14 +2276,15 @@ def phase_rollout_full(dev, smi: str) -> dict:
     return {**out, "equal_to_cached": same, "cached_ms": cached_ms}
 
 
-def phase_stage_shapes(dev, launches: dict, paths=STAGE_PATHS, tag="stage shapes") -> list:
+def phase_stage_shapes(dev, launches: dict, paths=STAGE_PATHS, tag="stage shapes",
+                       extra=()) -> list:
     """K1, and K3 and K4 where a training path of `paths` (phases 16 to 18,
-    or 27 and 28) launched them, in bf16 at every shape that those paths
-    brought and no other path has, as CUDA graphs: beside PyTorch's flash
-    forward (SDPA) and aten's flash backward, the plain twins where one
-    call holds at most 2^27 logits, the bounds and each path's launches of
-    the shape (`launches`: path -> kernel -> shape -> count, one step or
-    one call)."""
+    27 and 28, or 30) launched them, in bf16 at every shape that those
+    paths brought and no other path has (and at the shapes `extra`), as
+    CUDA graphs: beside PyTorch's flash forward (SDPA) and aten's flash
+    backward, the plain twins where one call holds at most 2^27 logits, the
+    bounds and each path's launches of the shape (`launches`: path ->
+    kernel -> shape -> count, one step or one call)."""
     from open_genie_tpu_torch.ops.kernels.flash_attention import (
         flash_attention,
         flash_attention_bwd_dkv,
@@ -2267,7 +2294,7 @@ def phase_stage_shapes(dev, launches: dict, paths=STAGE_PATHS, tag="stage shapes
     )
 
     older = {c for path, cases in PATH_CASES.items() if path not in paths for c in cases}
-    new = sorted({c for path in paths for c in PATH_CASES[path]} - older)
+    new = sorted({c for path in paths for c in PATH_CASES[path]} - older | set(extra))
     g = torch.Generator(device=dev).manual_seed(SEED + 22)
     rows = []
     for case in new:
@@ -2418,8 +2445,8 @@ class TrainerWatch:
                  "shapes": {k: {c: n for c, n in v.items() if n} for k, v in shapes.items()}})
             return log(logger, step, metrics)
 
-        def watched_save(writer, state, step=None):
-            seconds = save(writer, state, step)
+        def watched_save(writer, state, step=None, **kwargs):
+            seconds = save(writer, state, step, **kwargs)
             step = state.step if step is None else step
             watch._mark()
             watch.saves.append({"step": step, "seconds": seconds, "dir": writer.dir,
@@ -3504,29 +3531,6 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-class _AllReduceBytes:
-    """Counts the bytes that `torch.distributed.all_reduce` is given while
-    inside (the collectives call it through the module's attribute)."""
-
-    def __enter__(self):
-        import torch.distributed as dist
-
-        self.bytes, self._orig = 0, dist.all_reduce
-
-        def counted(t, *args, **kwargs):
-            self.bytes += t.numel() * t.element_size()
-            return self._orig(t, *args, **kwargs)
-
-        dist.all_reduce = counted
-        return self
-
-    def __exit__(self, *exc):
-        import torch.distributed as dist
-
-        dist.all_reduce = self._orig
-        return False
-
-
 def _spy_applied(opt, trainable, before_clip: bool = False) -> tuple:
     """`({name: gradient}, undo)`: the gradients as AdamW applies them
     (reduced, clipped), filled at each update of `opt` until `undo()`;
@@ -3589,32 +3593,33 @@ def _first_difference(a: dict, b: dict) -> str:
 
 
 def _dp_world1_step(label: str, path: str, module, batch, frozen: tuple, opt_kwargs: dict,
-                    gen_seed: int, group, smi: str) -> dict:
+                    gen_seed: int, smi: str) -> dict:
     """`module` and a copy of it, one through `make_train_step` without a
-    group and one through the distributed step on `group` (one NCCL rank),
-    each from a generator of `gen_seed`: the first step's loss, metrics,
+    mesh and one through the distributed step on the run's mesh (one NCCL
+    rank), each from a generator of `gen_seed`: the first step's loss, metrics,
     applied gradients and parameters after it bit-identical; then
     DP_TIMED_STEPS more of each, timed in turns (bare, dp, dp, bare), with
     each step's peak memory. Returns the DP step's launches, times,
     memory and gradient bytes all-reduced."""
+    from open_genie_tpu_torch.parallel.mesh import Mesh, make_mesh
     from open_genie_tpu_torch.train.losses import frozen_param_mask
     from open_genie_tpu_torch.train.loop import make_optimizer, make_train_step
 
     dev = batch.device
     mask = frozen_param_mask(module, frozen)
     runs = {}
-    for name, grp, m in (("bare", None, module), ("dp", group, copy.deepcopy(module))):
+    for name, mesh, m in (("bare", Mesh(1), module), ("dp", make_mesh(), copy.deepcopy(module))):
         opt = make_optimizer(m, frozen_mask=mask, **opt_kwargs)
         applied, undo = _spy_applied(opt, [(n, p) for n, p in m.named_parameters() if mask[n]])
         runs[name] = {"module": m, "applied": applied, "undo": undo, "ms": [], "peak": [],
-                      "step": make_train_step(m, opt, compute_dtype=torch.bfloat16, group=grp),
+                      "step": make_train_step(m, opt, compute_dtype=torch.bfloat16, mesh=mesh),
                       "gen": torch.Generator(device=dev).manual_seed(gen_seed)}
     for name, run in runs.items():
         _reset_counts()
-        with _AllReduceBytes() as reduced:
+        with _CollectiveBytes() as moved:
             run["metrics"] = run["step"](batch, generator=run["gen"])
             torch.cuda.synchronize()
-        run["counts"], run["bytes"] = _read_counts(), reduced.bytes
+        run["counts"], run["bytes"] = _read_counts(), moved.reduced
         run["undo"]()
         if name == "dp":
             _assert_path_kernels(f"{label} dp", path, show=False)
@@ -3672,14 +3677,14 @@ def phase_dp_world1(dev, smi: str) -> dict:
         module = init_weights(TokenizerTrainModule(**tokenizer_train_config()), g).to(dev)
         video = torch.rand(*DP_TOK_BATCH, generator=g).to(dev)
         tok = _dp_world1_step("dp tokenizer train", "tokenizer_train", module, video,
-                              ("perc_crit",), {}, SEED + 13, dist.group.WORLD, smi)
+                              ("perc_crit",), {}, SEED + 13, smi)
         del module, video
         g = torch.Generator().manual_seed(SEED + 7)
         module = init_weights(GenieTrainModule(genie_train_config()), g).to(dev)
         video = torch.rand(*DP_GENIE_BATCH, generator=g).to(dev)
         genie = _dp_world1_step("dp train", "train_step", module, video, ("model/tokenizer",),
                                 dict(lr=1e-4, weight_decay=0.01, grad_clip=1.0), SEED + 8,
-                                dist.group.WORLD, smi)
+                                smi)
         del module, video
     finally:
         dist.destroy_process_group()
@@ -3760,9 +3765,9 @@ def dp_rank_main(work: Path) -> int:
 
         return timed
 
-    def spy_save(self, state, step=None):
+    def spy_save(self, state, step=None, **kwargs):
         written.append((Path(self.dir).name, step))
-        return save(self, state, step)
+        return save(self, state, step, **kwargs)
 
     ttrainer.make_train_step, CheckpointWriter.save = timed_make_train_step, spy_save
     state = cli(["train", "tokenizer", "--config", spec["cfg_a"], "--device", dev.type])
@@ -4030,16 +4035,408 @@ def phase_dp_two_ranks(dev, smi: str) -> dict:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# Phase 30: tensor parallelism over the `model` axis, two gloo ranks on the
+# one card (mesh data 1 x model 2), each a process of this script.
+TP_LR = 1e-4
+TP_GENIE_BATCH = (4, 16, 64, 64, 3)  # genie.yaml's batch
+# The flagship dry run's batch (`__graft_entry__.py`: max(n_data, 2) clips
+# of 4 x 8x8 frames).
+TP_FLAGSHIP_BATCH = (2, 4, 8, 8, 3)
+TP_TURNS = 1  # rounds of (one process, TP, TP, one process) timed in 30a
+# 30c: `cli train genie` steps, its one checkpoint, and its lr (genie.yaml's
+# 1e-4 takes the f32 loss from 15.5 to 1117 in 3 steps; PERF.md).
+TP_STEPS, TP_CKPT_AT, TP_CLI_LR = 3, 2, 1e-5
+# A TP step in f32 (TF32 off) against one process on the same weights,
+# batch and noise: the loss within `loss` relative, each gathered gradient
+# (before the clip) within `grad` of its norm, the parameters after the
+# step within 2.1 lr. The gap is f32 rounding: partial sums over half the
+# heads or half the vocabulary added in another order.
+TP_TOL = {"loss": 1e-5, "grad": 1e-4}
+
+
+class _CollectiveBytes:
+    """The bytes handed to `torch.distributed.all_reduce` and, gathered
+    (the whole output), to `all_gather` while inside (the collectives call
+    them through the module's attributes)."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.reduced = self.gathered = 0
+        self._orig = (dist.all_reduce, dist.all_gather)
+
+        def reduce(t, *args, **kwargs):
+            self.reduced += t.numel() * t.element_size()
+            return self._orig[0](t, *args, **kwargs)
+
+        def gather(out, t, *args, **kwargs):
+            self.gathered += sum(o.numel() * o.element_size() for o in out)
+            return self._orig[1](out, t, *args, **kwargs)
+
+        dist.all_reduce, dist.all_gather = reduce, gather
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.all_reduce, dist.all_gather = self._orig
+        return False
+
+
+def _genie_step(module, mesh, dev, video, gen_seed: int, compute_dtype=None) -> dict:
+    """One `make_train_step` step of a Genie train module, split over
+    `mesh`'s model axis (or, on `Mesh(1)`, in one process): the metrics,
+    the trainable gradients before the clip and the parameters after,
+    each in the one-process layout on the CPU."""
+    from open_genie_tpu_torch.parallel.tensor import gather_split, split_of
+    from open_genie_tpu_torch.train.loop import make_optimizer, make_train_step
+    from open_genie_tpu_torch.train.losses import frozen_param_mask
+
+    mask = frozen_param_mask(module, ("model/tokenizer",))
+    opt = make_optimizer(module, lr=TP_LR, weight_decay=0.01, grad_clip=1.0, frozen_mask=mask)
+    grads, undo = _spy_applied(opt, [(n, p) for n, p in module.named_parameters() if mask[n]],
+                               before_clip=True)
+    step = make_train_step(module, opt, compute_dtype=compute_dtype, mesh=mesh)
+    metrics = step(video, generator=torch.Generator(device=dev).manual_seed(gen_seed))
+    undo()
+    named = dict(module.named_parameters())
+
+    def whole(name, t):
+        return gather_split(t, split_of(named[name]), mesh.model_group).cpu()
+
+    return {"metrics": {k: v.item() for k, v in metrics.items()},
+            "grads": {n: whole(n, g) for n, g in grads.items()},
+            "params": {n: whole(n, p.detach()) for n, p in named.items()}}
+
+
+def _tp_compare(tp: dict, one: dict) -> dict:
+    """A TP step's loss, metrics, gradients and parameters against one
+    process's: relative errors, the largest first."""
+    errs = _grad_rel_errs(tp["grads"], one["grads"])
+    return {"loss": abs(tp["metrics"]["loss"] / one["metrics"]["loss"] - 1),
+            "metrics": max(abs(v - one["metrics"][k]) / max(abs(one["metrics"][k]), 1e-6)
+                           for k, v in tp["metrics"].items()),
+            "grads_together": errs[""], "grad": max(v for k, v in errs.items() if k),
+            "worst": [k for k in errs if k][:3],
+            "param": max((p - one["params"][n]).abs().max().item()
+                         for n, p in tp["params"].items())}
+
+
+def _fingerprint(tensors: dict) -> dict:
+    """Each tensor's float64 sum and largest |element|: what two ranks'
+    copies are compared by."""
+    return {n: (t.double().sum().item(), t.abs().max().item()) for n, t in tensors.items()}
+
+
+def _tp_f32_case(label: str, cfg: dict, batch: tuple, seed: int, mesh, dev) -> dict:
+    """30a / 30b on a rank: the f32 TP step and, on rank 0, the one-process
+    step of the same weights, batch and noise (TF32 off), compared there
+    (`_tp_compare`); the metrics and the gathered gradients' fingerprints,
+    the split parameters' shapes, K1-K4's launches and shapes."""
+    import torch.distributed as dist
+
+    from open_genie_tpu_torch.parallel.mesh import Mesh
+    from open_genie_tpu_torch.parallel.tensor import shard_module, split_of
+    from open_genie_tpu_torch.train.losses import GenieTrainModule
+    from open_genie_tpu_torch.utils import init_weights
+
+    g = torch.Generator().manual_seed(seed)
+    whole = init_weights(GenieTrainModule(cfg), g)
+    video = torch.rand(*batch, generator=g).to(dev)
+    with _Tf32Off():
+        tp = shard_module(copy.deepcopy(whole).to(dev), mesh)
+        split = {n: tuple(p.shape) for n, p in tp.named_parameters() if split_of(p)}
+        _reset_counts()
+        got = _genie_step(tp, mesh, dev, video, seed + 1)
+        out = {"metrics": got["metrics"], "grads": _fingerprint(got["grads"]), "split": split,
+               "shapes": _read_shapes(), "launches": _read_counts()}
+        del tp
+        if mesh.rank == 0:
+            out["errs"] = _tp_compare(got, _genie_step(whole.to(dev), Mesh(1), dev, video,
+                                                       seed + 1))
+        del got, whole
+        dist.barrier()
+    torch.cuda.empty_cache()
+    print(f"[{label}] rank {mesh.rank}: {len(split)} split parameters, loss "
+          f"{out['metrics']['loss']:.6f}", flush=True)
+    return out
+
+
+def _tp_bf16_turns(mesh, dev) -> dict:
+    """30a in bf16 on a rank: the first TP step's launches by variant and
+    shape (every K1, K3, K4 launch on the tensor cores at
+    `PATH_CASES["tp_train_step"]`), the bytes all-reduced and gathered and
+    the peak memory; then, after one untimed one-process step, TP_TURNS
+    rounds of (one process, TP, TP, one process), the one-process step on
+    rank 0 while rank 1 waits."""
+    import torch.distributed as dist
+
+    from open_genie_tpu_torch.models.configs import genie_train_config
+    from open_genie_tpu_torch.parallel.mesh import Mesh
+    from open_genie_tpu_torch.parallel.tensor import shard_module
+    from open_genie_tpu_torch.train.loop import make_optimizer, make_train_step
+    from open_genie_tpu_torch.train.losses import GenieTrainModule, frozen_param_mask
+    from open_genie_tpu_torch.utils import init_weights
+
+    torch.backends.cudnn.deterministic = True
+    g = torch.Generator().manual_seed(SEED + 7)
+    whole = init_weights(GenieTrainModule(genie_train_config()), g)
+    video = torch.rand(*TP_GENIE_BATCH, generator=g).to(dev)
+
+    def make(module, mesh_):
+        mask = frozen_param_mask(module, ("model/tokenizer",))
+        opt = make_optimizer(module, lr=TP_LR, weight_decay=0.01, grad_clip=1.0,
+                             frozen_mask=mask)
+        return make_train_step(module, opt, compute_dtype=torch.bfloat16, mesh=mesh_)
+
+    tp_step = make(shard_module(copy.deepcopy(whole).to(dev), mesh), mesh)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    with _CollectiveBytes() as moved:
+        metrics = tp_step(video, generator=gen)
+        torch.cuda.synchronize()
+    counts, shapes = _read_counts(), _read_shapes()
+    variants = _assert_path_kernels("tp train", "tp_train_step", show=mesh.rank == 0)
+    assert all(variants[name]["mma"] == counts[name] for name in _FLASH)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loss = metrics["loss"].item()
+    assert math.isfinite(loss), "non-finite TP loss"
+    one_step = make(whole.to(dev), Mesh(1)) if mesh.rank == 0 else None
+    if one_step is not None:  # its first call sets up what the TP step's first did
+        one_step(video, generator=gen)
+    dist.barrier()
+    ms = {"one": [], "tp": []}
+    for name in ["one", "tp", "tp", "one"] * TP_TURNS:
+        if name == "one" and one_step is None:
+            dist.barrier()
+            continue
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (one_step if name == "one" else tp_step)(video, generator=gen)
+        torch.cuda.synchronize()
+        ms[name].append((time.perf_counter() - t0) * 1e3)
+        if name == "one":
+            dist.barrier()
+    return {"launches": counts, "shapes": shapes, "loss": loss, "peak_gib": peak,
+            "reduced_bytes": moved.reduced, "gathered_bytes": moved.gathered, "ms": ms}
+
+
+def _tp_rank_spec(work: Path) -> dict:
+    with open(work / "spec.json") as f:
+        return json.load(f)
+
+
+def tp_rank_main(work: Path) -> int:
+    """One rank of phase 30 (`chip_smoke.py --tp-rank-of <work>`, launched
+    by the phase with the `OGT_*` variables, gloo on the one card, mesh 1
+    x 2): 30a's f32 and bf16 steps of `genie_train_config()`, 30b's
+    flagship step, then 30c's `cli train genie` on the phase's genie.yaml
+    copy with `trainer.n_model: 2`; writes what it saw to `rank<r>.pt`."""
+    import torch.distributed as dist
+
+    _import_port()
+    from open_genie_tpu_torch.cli import main as cli
+    from open_genie_tpu_torch.models.configs import genie_tp_flagship_config, genie_train_config
+    from open_genie_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from open_genie_tpu_torch.train.loop import CheckpointWriter
+
+    spec = _tp_rank_spec(work)
+    dev = torch.device(spec["device"])
+    assert init_distributed(backend="gloo", device=dev)
+    mesh = make_mesh(1, 2)
+    out = {"f32": _tp_f32_case("tp f32", genie_train_config(), TP_GENIE_BATCH, SEED + 30,
+                               mesh, dev)}
+    out["bf16"] = _tp_bf16_turns(mesh, dev)
+    out["flagship"] = _tp_f32_case("tp flagship", genie_tp_flagship_config(), TP_FLAGSHIP_BATCH,
+                                   SEED + 32, mesh, dev)
+    torch.cuda.empty_cache()
+    written, save = [], CheckpointWriter.save
+
+    def spy_save(self, state, step=None, **kwargs):
+        written.append((Path(self.dir).name, step))
+        return save(self, state, step, **kwargs)
+
+    CheckpointWriter.save = spy_save
+    t0 = time.perf_counter()
+    with _Tf32Off():
+        state = cli(["train", "genie", "--config", spec["cfg_tp"], "--device", dev.type])
+    out["cli"] = {"written": written, "step": state.step, "seconds": time.perf_counter() - t0,
+                  "split": sum(1 for p in state.module.parameters()
+                               if getattr(p, "tp_split", None))}
+    torch.save(out, work / f"rank{mesh.rank}.pt")
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_tp_two_ranks(dev, smi: str) -> dict:
+    """Phase 30: two ranks on the one card over gloo, a mesh of data 1 x
+    model 2 (`tp_rank_main`). 30a: `genie_train_config()` at genie.yaml's
+    batch, one f32 step held to one process (TP_TOL), one bf16 step with
+    every K1, K3 and K4 launch on the tensor cores at the per-rank shapes
+    (`PATH_CASES["tp_train_step"]`, held to their twins by phases 3 and 7),
+    its collective bytes and peak memory, ms per rank step beside the
+    one-process step in turns. 30b: the flagship split
+    (`genie_tp_flagship_config()`, a 2^18 head and token embedding split in
+    two), one f32 step held to one process. 30c: `cli train genie` on a
+    genie.yaml copy with `trainer.n_model: 2` (f32, lr TP_CLI_LR, TP_STEPS
+    steps, one checkpoint at TP_CKPT_AT, by rank 0 alone, in the
+    one-process layout);
+    the checkpoint resumed on one process gives the TP run's next step
+    within TP_TOL["loss"]."""
+    from open_genie_tpu_torch.cli import main as cli
+    from open_genie_tpu_torch.models.configs import genie_tp_flagship_config, genie_train_config
+    from open_genie_tpu_torch.train.loop import all_steps, load_checkpoint
+    from open_genie_tpu_torch.train.losses import GenieTrainModule
+
+    (HERE / "build").mkdir(exist_ok=True)
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_tp_", dir=HERE / "build"))
+    try:
+        tp_run, one_run = work / "tp", work / "one"
+        common = dict(max_steps=TP_STEPS, precision="32", n_data=1,
+                      ckpt_every_n_steps=TP_CKPT_AT, save_last=False)
+        lr = {"model": {"optimizer": {"init_args": {"lr": TP_CLI_LR}}}}
+        cfg_tp = yaml_copy("genie.yaml", work, {**lr, **trainer_overrides(tp_run, n_model=2,
+                                                                         **common)})
+        cfg_one = yaml_copy("genie.yaml", work, {**lr, **trainer_overrides(one_run, n_model=1,
+                                                                          **common)})
+        (work / "spec.json").write_text(json.dumps({"cfg_tp": cfg_tp, "device": dev.type}))
+        env = {**os.environ, "OGT_COORDINATOR": f"localhost:{_free_port()}",
+               "OGT_NUM_PROCESSES": "2"}
+        t0 = time.perf_counter()
+        logs = [open(work / f"rank{r}.log", "w") for r in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(HERE / "chip_smoke.py"), "--tp-rank-of", str(work)],
+            env={**env, "OGT_PROCESS_ID": str(r)}, stdout=log, stderr=subprocess.STDOUT,
+            cwd=HERE) for r, log in enumerate(logs)]
+        try:
+            codes = [p.wait(timeout=900) for p in procs]
+        finally:
+            for p, log in zip(procs, logs):
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+                log.close()
+        seconds = time.perf_counter() - t0
+        logs = [(work / f"rank{r}.log").read_text() for r in range(2)]
+        assert codes == [0, 0], f"30 rank exit codes {codes}:\n" + "\n".join(
+            f"--- rank {r}\n{log[-3000:]}" for r, log in enumerate(logs))
+        ranks = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in range(2)]
+        print("\n".join(line for line in logs[0].splitlines() if line.startswith("[tp")))
+
+        # 30a and 30b: f32 TP steps against one process.
+        for key, label in (("f32", "tp f32"), ("flagship", "tp flagship")):
+            e = ranks[0][key]["errs"]
+            a, b = (r[key] for r in ranks)
+            assert a["metrics"] == b["metrics"], f"[{label}] the ranks' metrics differ"
+            assert a["grads"] == b["grads"], f"[{label}] the ranks' gathered gradients differ"
+            print(f"[{label}] {smi}: one f32 step on 2 model ranks against one process (TF32 "
+                  f"off): loss {e['loss']:.3g} relative, metrics {e['metrics']:.3g}, the "
+                  f"{len(a['grads'])} gathered gradients before the clip {e['grads_together']:.3g} "
+                  f"of their norm together, {e['grad']:.3g} at most ({', '.join(e['worst'])}); "
+                  f"max |d param| after the step {e['param']:.3g}; {len(ranks[0][key]['split'])} "
+                  f"split parameters a rank; the ranks' metrics and gradients bit-equal; "
+                  f"tolerances {TP_TOL}")
+            assert e["loss"] <= TP_TOL["loss"], f"[{label}] loss off by {e['loss']:.3g}"
+            assert e["grad"] <= TP_TOL["grad"], f"[{label}] {e['worst'][0]} off by {e['grad']:.3g}"
+            assert e["param"] <= 2.1 * TP_LR, f"[{label}] parameters off by {e['param']:.3g}"
+        flagship = genie_tp_flagship_config()
+        vocab, dim = 2 ** flagship["tokenizer"]["d_codebook"], flagship["dynamics"]["embed_dim"]
+        head = ranks[0]["flagship"]["split"]["model.dynamics.head.weight"]
+        emb = ranks[0]["flagship"]["split"]["model.dynamics.tok_emb.weight"]
+        assert head == (vocab // 2, dim) and emb == (vocab, dim // 2), (head, emb)
+        print(f"[tp flagship] dynamics head {head} and token embedding {emb} on each rank "
+              f"(whole: {(vocab, dim)} each)")
+        shapes = {}
+        for key in ("f32", "flagship"):
+            for name in _FLASH:
+                for case in ranks[0][key]["shapes"][name]:
+                    shapes.setdefault(name, set()).add(case)
+        k1_err = f32_path_check("tp f32", shapes.get("flash_attention_fwd", set()), dev)
+        k34_err = f32_backward_check("tp f32", shapes.get("flash_attention_bwd_dkv", set())
+                                     | shapes.get("flash_attention_bwd_dq", set()), dev)
+
+        # 30a in bf16: launches, bytes, memory, ms in turns.
+        bf = [r["bf16"] for r in ranks]
+        assert bf[0]["launches"] == bf[1]["launches"] and bf[0]["shapes"] == bf[1]["shapes"]
+        ms_tp = [statistics.median(b["ms"]["tp"]) for b in bf]
+        ms_one = statistics.median(bf[0]["ms"]["one"])
+        mib = 2 ** 20
+        b, t, h, w, _ = TP_GENIE_BATCH
+        print(f"[tp train] {smi}: bf16 step of genie_train_config() at {b} x {t} x {h}x{w} on 2 "
+              f"model ranks over gloo: loss {bf[0]['loss']:.5f}; "
+              f"{ms_tp[0]:.1f} and {ms_tp[1]:.1f} ms per step on ranks 0 and 1 (medians of "
+              f"{len(bf[0]['ms']['tp'])} in turns: {[round(t, 1) for t in bf[0]['ms']['tp']]}) "
+              f"against {ms_one:.1f} ms for the one-process step "
+              f"({[round(t, 1) for t in bf[0]['ms']['one']]}); {bf[0]['reduced_bytes'] / mib:.1f} "
+              f"MiB all-reduced and {bf[0]['gathered_bytes'] / mib:.1f} MiB all-gathered a rank "
+              f"step; peak memory {bf[0]['peak_gib']:.2f} and {bf[1]['peak_gib']:.2f} GiB on "
+              f"ranks 0 and 1; launches a rank {bf[0]['launches']}")
+
+        # 30c: the checkpoint of `cli train genie` on two model ranks.
+        cli0, cli1 = (r["cli"] for r in ranks)
+        assert cli1["written"] == [], f"rank 1 wrote {cli1['written']}"
+        assert cli0["written"] == [("ckpt", TP_CKPT_AT)], cli0["written"]
+        assert all_steps(tp_run / "ckpt") == [TP_CKPT_AT]
+        assert "[step" not in logs[1], "rank 1 printed step lines"
+        records = read_jsonl(tp_run / "logs")
+        _finite_records("tp trainer", records)
+        tp_losses = {r["step"]: r["loss"] for r in records if "loss" in r}
+        assert sorted(tp_losses) == list(range(1, TP_STEPS + 1)), sorted(tp_losses)
+        ckpt, _ = load_checkpoint(str(tp_run / "ckpt"))
+        with torch.device("meta"):
+            want = {k: tuple(v.shape)
+                    for k, v in GenieTrainModule(genie_train_config()).state_dict().items()}
+        assert {k: tuple(v.shape) for k, v in ckpt["params"].items()} == want, (
+            "the TP checkpoint is not in the one-process layout")
+        (one_run / "ckpt").mkdir(parents=True)
+        for name in (str(TP_CKPT_AT), "config.yaml"):
+            src = tp_run / "ckpt" / name
+            (shutil.copytree if src.is_dir() else shutil.copy)(src, one_run / "ckpt" / name)
+        with _Tf32Off():
+            cli(["train", "genie", "--config", cfg_one, "--resume", "--device", dev.type])
+        one_losses = {r["step"]: r["loss"] for r in read_jsonl(one_run / "logs") if "loss" in r}
+        assert sorted(one_losses) == [TP_STEPS], sorted(one_losses)
+        l_err = abs(one_losses[TP_STEPS] / tp_losses[TP_STEPS] - 1)
+        tp_ms = [1e3 / r["steps_per_sec"] for r in records if "steps_per_sec" in r][1:]
+        print(f"[tp trainer] {smi}: cli train genie on 2 model ranks (f32): losses "
+              f"{[round(tp_losses[s], 6) for s in sorted(tp_losses)]}, "
+              f"{cli0['split']} split parameters a rank, one checkpoint at step {TP_CKPT_AT} "
+              f"by rank 0 in the one-process layout ({len(ckpt['params'])} tensors); resumed "
+              f"on one process, step {TP_STEPS}'s loss {one_losses[TP_STEPS]:.6f} against the "
+              f"TP run's {tp_losses[TP_STEPS]:.6f}: {l_err:.3g} relative; TP steps after the "
+              f"first {[round(t, 1) for t in tp_ms]} ms; K1 f32 at the ranks' shapes within "
+              f"{k1_err:.3g} of its twin, K3/K4 {k34_err:.3g}; phase 30's ranks took "
+              f"{seconds:.1f} s with their start-up")
+        assert l_err <= TP_TOL["loss"], f"the resumed step 3 is off by {l_err:.3g}"
+        return {"launches": bf[0]["launches"], "shapes": bf[0]["shapes"],
+                "rank_ms": ms_tp, "one_process_ms": ms_one,
+                "reduced_mib": bf[0]["reduced_bytes"] / mib,
+                "gathered_mib": bf[0]["gathered_bytes"] / mib,
+                "peak_gib": [b["peak_gib"] for b in bf],
+                "f32_loss_rel_err": ranks[0]["f32"]["errs"]["loss"],
+                "f32_grad_rel_err": ranks[0]["f32"]["errs"]["grad"],
+                "flagship_loss_rel_err": ranks[0]["flagship"]["errs"]["loss"],
+                "flagship_grad_rel_err": ranks[0]["flagship"]["errs"]["grad"],
+                "resume_loss_rel_err": l_err, "cli_ms": tp_ms, "seconds": seconds}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     global SEED
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=SEED,
                         help="seed of every phase's weights, data and noise")
     parser.add_argument("--dp-rank-of", default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--tp-rank-of", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     SEED = args.seed
     if args.dp_rank_of:  # a rank that phase 29b launched
         return dp_rank_main(Path(args.dp_rank_of))
+    if args.tp_rank_of:  # a rank that phase 30 launched
+        return tp_rank_main(Path(args.tp_rank_of))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this runs on an "
               "NVIDIA GPU", file=sys.stderr)
@@ -4088,12 +4485,17 @@ def main() -> int:
     alt = phase_alt_resamplers(dev, device["smi"])
     dp = {**phase_dp_world1(dev, device["smi"]), "dp_trainer": phase_dp_two_ranks(
         dev, device["smi"])}
+    tp = phase_tp_two_ranks(dev, device["smi"])
     module_paths = {"video_disc_train": vdisc, **{
         path: {"launches": alt["launches"][path], "shapes": alt["shapes"].get(path)}
         for path in MODULE_PATHS if path != "video_disc_train"}}
     shape_rows += phase_stage_shapes(
         dev, {path: module_paths[path]["shapes"] or {name: {} for name in _FLASH}
               for path in MODULE_PATHS}, MODULE_PATHS, "module shapes")
+    # Phase 30's halved-head shapes; the dynamics' spatial (256, 256, 64),
+    # timed before for `generate`'s forward only, is trained here.
+    shape_rows += phase_stage_shapes(dev, {"tp_train_step": tp["shapes"]}, ("tp_train_step",),
+                                     "tp shapes", extra=[(256, 256, 64, False)])
     cli_paths = {"gvid_train": gvid["launches"], "eval_tokenizer": eval_tok["launches"],
                  "generate_cli": gen["launches"], "play": gen["play"]["per_step"],
                  "eval_genie": evals["eval_genie"]["launches"],
@@ -4109,7 +4511,10 @@ def main() -> int:
         # tokenizer` on r05b. First phase 29's: one distributed MAGVIT2 and
         # Genie step on one NCCL rank, one step of rank 0 of `cli train
         # tokenizer` on two ranks, and rank 0's half of the split K5/K6.
-        by_path = {"dp_tokenizer_train": dp["dp_tokenizer_train"]["launches"][name],
+        # Before them phase 30's: one bf16 Genie step of rank 0 of two
+        # model ranks.
+        by_path = {"tp_train_step": tp["launches"][name],
+                   "dp_tokenizer_train": dp["dp_tokenizer_train"]["launches"][name],
                    "dp_train_step": dp["dp_train_step"]["launches"][name],
                    "dp_trainer_rank0": dp["dp_trainer"]["launches"][name],
                    "dp_lfq_split_rank0": dp["dp_trainer"]["split_launches"][name],
@@ -4125,8 +4530,8 @@ def main() -> int:
                    "serve": serve["launches"][name], "tokenizer_train": tok_train[name],
                    "train_step": train.get(name, 0), "rollout": rollout.get(name, 0)}
         # The newest path that runs the kernel, in the order above: the
-        # distributed MAGVIT2 step for K1, K3, K4, K5 and K6, the
-        # distributed Genie step for K2.
+        # tensor-parallel Genie step for K1 to K4, the distributed MAGVIT2
+        # step for K5 and K6.
         k["launches"] = next((c for c in by_path.values() if c > 0), 0)
         k["launches_by_path"] = by_path
         k["serve_launches"] = {"per_reset": serve["per_reset"][name],
@@ -4159,9 +4564,10 @@ def main() -> int:
                "alt": {k: v for k, v in alt.items() if k not in ("launches", "shapes")}}
     dp_times = {path: {k: v for k, v in out.items() if k not in ("launches", "split_launches")}
                 for path, out in dp.items()}
+    tp_times = {k: v for k, v in tp.items() if k not in ("launches", "shapes")}
     print(json.dumps({"kernels": kernels, "serve": serve["times"], "stages": stages,
                       "trainer": trainer_times, "cli": cli_times, "modules": modules,
-                      "dp": dp_times}))
+                      "dp": dp_times, "tp": tp_times}))
     print(json.dumps({"ok": True, "device": {k: device[k] for k in ("platform", "kind", "count")}}))
     return 0
 

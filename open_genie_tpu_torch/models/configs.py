@@ -143,6 +143,53 @@ def genie_train_config() -> dict:
     )
 
 
+def genie_tp_flagship_config() -> dict:
+    """The flagship split of the JAX package's multi-device dry run
+    (`__graft_entry__.py::_GENIE_FLAGSHIP`, pinned equal by the tests): the
+    dynamics trunk at its real 512 width (2 blocks of 8 heads x 64) over
+    the real 2^18-token vocabulary, so the tensor-parallel split holds a
+    512 x 262144 head and a 262144 x 512 token embedding; a thin 18-bit
+    tokenizer without attention and a 32-wide latent action (2 heads x
+    16) over 8x8 frames, so 2x2 token frames."""
+    return dict(
+        tokenizer=dict(
+            enc_desc=(
+                ("spacetime_downsample", {
+                    "in_channels": 3, "kernel_size": 3, "out_channels": 32,
+                    "time_factor": 1, "space_factor": 4,
+                }),
+                ("causal-conv3d", {"in_channels": 32, "out_channels": 18, "kernel_size": 1}),
+            ),
+            dec_desc=(
+                ("causal-conv3d", {"in_channels": 18, "out_channels": 32, "kernel_size": 3}),
+                ("depth2spacetime_upsample", {
+                    "in_channels": 32, "out_channels": 3, "kernel_size": 3,
+                    "time_factor": 1, "space_factor": 4,
+                }),
+            ),
+            d_codebook=18,
+        ),
+        latent_action=dict(
+            enc_desc=(
+                ("space-time_attn", {"n_rep": 1, "n_embd": 32, "n_head": 2, "d_head": 16}),
+            ),
+            dec_desc=(
+                ("space-time_attn", {
+                    "n_rep": 1, "n_embd": 32, "n_head": 2, "d_head": 16,
+                    "has_ext": True, "time_attn_kw": {"key_dim": 4},
+                }),
+            ),
+            d_codebook=4,
+            n_embd=32,
+            inp_shape=(8, 8),
+        ),
+        dynamics=dict(
+            desc=(("space-time_attn", {"n_rep": 2, "n_embd": 512, "n_head": 8, "d_head": 64}),),
+            embed_dim=512,
+        ),
+    )
+
+
 def genie_serve_config() -> dict:
     """The interactive session's model of the JAX package's benchmark
     (`bench.py::_serve_cfg`, pinned equal by the tests): the full MAGVIT2

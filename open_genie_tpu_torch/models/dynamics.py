@@ -14,6 +14,7 @@ from torch import nn
 from open_genie_tpu_torch.modules import blueprint_out_width, parse_blueprint
 from open_genie_tpu_torch.modules.attention import st_attn_cache
 from open_genie_tpu_torch.parallel import collectives
+from open_genie_tpu_torch.parallel.tensor import vocab_parallel_argmax, vocab_parallel_log_prob
 from open_genie_tpu_torch.utils import module_dtype
 
 
@@ -100,7 +101,17 @@ def maskgit_commit(
 
 
 class DynamicsModel(nn.Module):
-    """MaskGIT over `(B, T, H, W)` token grids with `(B, T)` action ids."""
+    """MaskGIT over `(B, T, H, W)` token grids with `(B, T)` action ids.
+
+    Tensor parallel (`parallel.tensor.shard_module`): `tp_parts` names
+    what is split over `tp_group`. A split embedding holds this rank's
+    block of the width and its lookups are gathered; a split `head` holds
+    this rank's block of the vocabulary: `forward` gathers the logits,
+    `compute_loss` reduces the log-softmax and the argmax over the blocks
+    instead. The cached decode is not split."""
+
+    tp_group = None
+    tp_parts = frozenset()
 
     def __init__(self, desc: Any, tok_vocab: int, act_vocab: int, embed_dim: int):
         super().__init__()
@@ -112,13 +123,30 @@ class DynamicsModel(nn.Module):
         self.act_emb = nn.Embedding(act_vocab, embed_dim)
         self.head = nn.Linear(blueprint_out_width(desc, embed_dim), tok_vocab)
 
+    def _embed(self, name: str, ids: torch.Tensor) -> torch.Tensor:
+        out = getattr(self, name)(ids)
+        return (collectives.gather_from_model(out, self.tp_group) if name in self.tp_parts
+                else out)
+
+    def _head_group(self):
+        """The model group the head's vocabulary splits over, or None."""
+        return self.tp_group if "head" in self.tp_parts else None
+
+    def _local_logits(self, tokens: torch.Tensor, act_id: torch.Tensor) -> torch.Tensor:
+        """The trunk and this rank's block of the head's logits (all of
+        them where the head is not split)."""
+        x = self._embed("tok_emb", tokens) + self._embed("act_emb", act_id)[:, :, None, None, :]
+        for layer in self.layers:
+            x = layer(x)
+        group = self._head_group()
+        return self.head(x if group is None else collectives.copy_to_model(x, group))
+
     def forward(self, tokens: torch.Tensor, act_id: torch.Tensor) -> torch.Tensor:
         """Full forward: per-position logits `(B, T, H, W, V)`; actions are
         embedded per frame and added over the spatial grid."""
-        x = self.tok_emb(tokens) + self.act_emb(act_id)[:, :, None, None, :]
-        for layer in self.layers:
-            x = layer(x)
-        return self.head(x)
+        logits = self._local_logits(tokens, act_id)
+        group = self._head_group()
+        return logits if group is None else collectives.gather_from_model(logits, group)
 
     def compute_loss(
         self,
@@ -144,7 +172,8 @@ class DynamicsModel(nn.Module):
         the masked positions of every rank over their global count. One
         rate a global batch, as the JAX package draws it, needs a
         `rate_generator` in the same state on every rank; `generator` is
-        this rank's own.
+        this rank's own. With a split head the cross-entropy and the
+        accuracy's argmax are vocabulary-parallel.
         """
         if mask is None:
             if generator is None:
@@ -153,11 +182,12 @@ class DynamicsModel(nn.Module):
             rate = 0.5 + 0.5 * torch.rand((), generator=rate_generator or generator, device=dev)
             mask = torch.rand(tokens.shape, generator=generator, device=dev) < rate
         inp = tokens.masked_fill(mask, fill)
-        logits = self(inp, act_id)
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        tok_logp = torch.gather(logp, -1, tokens.long()[..., None])[..., 0]
+        logits = self._local_logits(inp, act_id)
+        vocab = self._head_group()
+        tok_logp = vocab_parallel_log_prob(logits, tokens, vocab)
         masked = mask.float()
-        nll, hits = (tok_logp * masked).sum(), ((logits.argmax(-1) == tokens).float() * masked).sum()
+        hit = vocab_parallel_argmax(logits, vocab) == tokens
+        nll, hits = (tok_logp * masked).sum(), (hit.float() * masked).sum()
         if not collectives.reduces(group):
             denom = masked.sum().clamp_min(1.0)
             frac = masked.mean()
@@ -175,6 +205,9 @@ class DynamicsModel(nn.Module):
         """Zeroed per-layer decode caches for a `t_max`-frame rollout
         (all-`space-time_attn` trunks only). Dtype and device default to
         the model's."""
+        if self.tp_parts:
+            raise NotImplementedError("the cached decode of a tensor-parallel dynamics model is "
+                                      "not split (no TP rollout); gather the weights first")
         dtype = dtype or module_dtype(self)
         device = device or self.head.weight.device
         caches = []
@@ -206,8 +239,10 @@ class DynamicsModel(nn.Module):
     def supports_cached_decode(self) -> bool:
         """Whether `generate` can refine through the KV-cached frame decode:
         only an all-`space-time_attn` trunk has decode caches; any other
-        trunk re-forwards the whole clip every step."""
-        return all((d if isinstance(d, str) else d[0]) == "space-time_attn" for d in self.desc)
+        trunk re-forwards the whole clip every step, as a split model
+        does."""
+        return not self.tp_parts and all(
+            (d if isinstance(d, str) else d[0]) == "space-time_attn" for d in self.desc)
 
     @torch.inference_mode()
     def generate(

@@ -14,18 +14,26 @@ by `st_attn_cache`. A commit step (`cache_write=True`) writes the frame's
 K/V and FFN window into that dict IN PLACE and returns it (the JAX package
 returns updated copies; the rollout drops the old cache anyway, so the
 port saves the copy). A refine step (`cache_write=False`) reads it only.
+
+Tensor parallel (`parallel/tensor.py::shard_module`): an `Attention` with
+a `tp_group` holds its rank's heads, its input enters through
+`copy_to_model` and its `to_out` partials leave through
+`reduce_from_model`; the FFN's split follows `ForwardBlock`. The cached
+decode paths are not split.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from open_genie_tpu_torch.modules.misc import ForwardBlock, per_frame_group_norm
 from open_genie_tpu_torch.ops.attention import dot_product_attention
 from open_genie_tpu_torch.ops.conv import conv3d_cl, time_valid_conv3d
 from open_genie_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from open_genie_tpu_torch.parallel import collectives
 from open_genie_tpu_torch.utils import default
 
 
@@ -37,7 +45,13 @@ class Attention(nn.Module):
     it is cross-attention: `forward` takes a `key` input of that width,
     used raw as keys and values, or none, and then its normed input of that
     width is the key (the JAX package's `default(key, qry)`).
+
+    With a `tp_group` (set by `parallel.tensor.shard_module`) the module
+    holds `n_head / n_model` heads of the model group: the projections
+    into heads are this rank's output slices, `to_out` its input slice.
     """
+
+    tp_group = None
 
     def __init__(
         self,
@@ -80,7 +94,7 @@ class Attention(nn.Module):
 
     def _heads(self, t: torch.Tensor) -> torch.Tensor:
         b, n, _ = t.shape
-        return t.view(b, n, self.n_head, self.d_head).transpose(1, 2)
+        return t.view(b, n, -1, self.d_head).transpose(1, 2)
 
     def _cross_qkv(self, x, key):
         if key.shape[-1] != self.key_dim:
@@ -106,9 +120,17 @@ class Attention(nn.Module):
         broadcastable to `(B, heads, N, N)`, True = attend) applies to full
         attention, on top of the causal mask where there is one."""
         decode = kv_cache is not None
+        tp = self.tp_group
+        if decode and tp is not None:
+            raise NotImplementedError("the cached decode of a tensor-parallel attention is not "
+                                      "split (no TP rollout); gather the weights first")
         if self._freq is not None:
             x = self._rope(x, cache_pos if decode else 0)
         x = self.norm(x)
+        if tp is not None:
+            x = collectives.copy_to_model(x, tp)
+            if key is not None:
+                key = collectives.copy_to_model(key, tp)
         b, n, _ = x.shape
         if self.key_dim is not None:
             if decode and key is not None:
@@ -120,7 +142,7 @@ class Attention(nn.Module):
             if key is not None:
                 raise ValueError("a key input needs an Attention built with key_dim")
             q, k, v = (
-                self.to_qkv(x).view(b, n, 3, self.n_head, self.d_head)
+                self.to_qkv(x).view(b, n, 3, -1, self.d_head)
                 .permute(2, 0, 3, 1, 4).unbind(0)
             )
 
@@ -136,7 +158,13 @@ class Attention(nn.Module):
         else:
             attn = dot_product_attention(q, k, v, self.scale, causal=self.causal, mask=mask)
 
-        out = self.to_out(attn.transpose(1, 2).reshape(b, n, -1))
+        attn = attn.transpose(1, 2).reshape(b, n, -1)
+        if tp is None:
+            out = self.to_out(attn)
+        else:  # row split: partial sums reduced, the bias added once
+            out = collectives.reduce_from_model(F.linear(attn, self.to_out.weight), tp)
+            if self.to_out.bias is not None:
+                out = out + self.to_out.bias
         if self.dropout is not None:
             out = self.dropout(out)
         if decode:
@@ -350,6 +378,8 @@ class SpaceTimeAttention(nn.Module):
             raise ValueError(
                 "cached decode requires a single-conv FFN (hid_dim=None)"
             )
+        if self.ffn.tp_group is not None:
+            raise NotImplementedError("the cached decode of a tensor-parallel FFN is not split")
         conv = self.ffn.block_0
         kernel, cbias = conv.weight, conv.bias  # (O, I, kt, kh, kw)
         kt = kernel.shape[2]

@@ -20,6 +20,7 @@ from torch import nn
 
 from open_genie_tpu_torch.modules.norm import group_norm
 from open_genie_tpu_torch.ops.conv import causal_conv3d, conv2d_cl, conv3d_cl
+from open_genie_tpu_torch.parallel import collectives
 from open_genie_tpu_torch.utils import cast_tuple, default
 
 ACTIVATIONS = {
@@ -61,7 +62,16 @@ class Activation(nn.Module):
 class ForwardBlock(nn.Module):
     """GroupNorm -> (layer -> tanh-GELU) chain, the GELU after the last
     layer only with `last_act`; `hid_dim` an int, a tuple or None (no
-    hidden layer)."""
+    hidden layer).
+
+    With a `tp_group` (`parallel.tensor.shard_module`) `block_0` holds
+    this rank's output channels of the replicated, normalised input (the
+    GroupNorm is not split): as the only layer its output is gathered;
+    before `block_1`, which holds the matching input channels, the
+    partial outputs of `block_1` are summed over the group and its bias
+    added once."""
+
+    tp_group = None
 
     def __init__(
         self,
@@ -95,20 +105,32 @@ class ForwardBlock(nn.Module):
         for i in range(self.n_blocks):
             self.add_module(f"block_{i}", layer(dims[i], dims[i + 1]))
 
-    def _layer(self, layer: nn.Module, h: torch.Tensor) -> torch.Tensor:
+    def _layer(self, layer: nn.Module, h: torch.Tensor, bias: bool = True) -> torch.Tensor:
+        b = layer.bias if bias else None
         if self.block == "dense":
-            return layer(h)
+            return F.linear(h, layer.weight, b)
         if self.block == "conv2d":
-            return conv2d_cl(h, layer.weight, layer.bias, padding=self.padding)
+            return conv2d_cl(h, layer.weight, b, padding=self.padding)
         if self.causal:
-            return causal_conv3d(h, layer.weight, layer.bias, space_padding=self.padding[1:])
-        return conv3d_cl(h, layer.weight, layer.bias, padding=self.padding)
+            return causal_conv3d(h, layer.weight, b, space_padding=self.padding[1:])
+        return conv3d_cl(h, layer.weight, b, padding=self.padding)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = group_norm(x, self.norm.weight, self.norm.bias, self.num_groups, self.norm.eps,
                        per_frame=self.causal)
+        tp = self.tp_group
+        if tp is not None:
+            h = collectives.copy_to_model(h, tp)
         for i in range(self.n_blocks):
-            h = self._layer(getattr(self, f"block_{i}"), h)
+            layer = getattr(self, f"block_{i}")
+            if tp is not None and i == 1:  # the row partner of the split block_0
+                h = collectives.reduce_from_model(self._layer(layer, h, bias=False), tp)
+                if layer.bias is not None:
+                    h = h + layer.bias
+            else:
+                h = self._layer(layer, h)
+            if tp is not None and i == 0 and self.n_blocks == 1:
+                h = collectives.gather_from_model(h, tp)
             if i < self.n_blocks - 1 or self.last_act:
                 h = ACTIVATIONS["gelu"](h)
         return h

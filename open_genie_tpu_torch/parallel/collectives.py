@@ -1,4 +1,4 @@
-"""The collectives of a data-parallel step.
+"""The collectives of a data- and tensor-parallel step.
 
 The JAX package's step on an `n_data` mesh computes the single-device step
 on the global batch (GSPMD). A rank of the port holds only its rows, so
@@ -28,6 +28,18 @@ one rank, every helper is the plain local op (`x.mean()`, `s / n`,
 `loss.backward()`), with no launch added, so a step on one rank is the
 step without a group bit for bit; only `all_reduce_tensors_` still runs
 the gradients' all-reduce on a group of one rank (a copy).
+
+On a mesh with a `model` axis, `group` above is the mesh's data group
+(`Mesh.data_group`): the ranks of one data shard hold the same loss, so
+each seeds it with 1/n_data. The model group's operators are Megatron's
+(`copy_to_model`, `reduce_from_model`, `gather_from_model`): a split
+layer's replicated input enters through `copy_to_model`, whose backward
+sums the ranks' partial input gradients; a row-split layer's partial
+outputs leave through `reduce_from_model`; a column-split output that the
+next layer needs whole leaves through `gather_from_model`. Partials of a
+16-bit dtype are summed (and gathered) in f32 and cast back. Only
+all-reduce, all-gather and broadcast are used (gloo has no
+reduce-scatter in every version).
 """
 from __future__ import annotations
 
@@ -50,6 +62,91 @@ def rank(group) -> int:
 def reduces(group) -> bool:
     """Whether `group` spans more than one rank."""
     return world_size(group) > 1
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous f32 copy of a 16-bit float tensor, a contiguous copy of
+    any other (what is handed to a collective)."""
+    wide = torch.float32 if t.dtype in (torch.bfloat16, torch.float16) else t.dtype
+    return t.detach().to(wide, copy=True).contiguous()
+
+
+def all_reduce_f32(t: torch.Tensor, group) -> torch.Tensor:
+    """`t` summed over the ranks of `group` in f32 (or wider), cast back to
+    `t`'s dtype, outside autograd; `t` itself when nothing reduces."""
+    if not reduces(group):
+        return t
+    out = _wide(t)
+    dist.all_reduce(out, group=group)
+    return out.to(t.dtype)
+
+
+def all_gather_wide(t: torch.Tensor, group) -> List[torch.Tensor]:
+    """Every rank's `t`, in rank order, outside autograd; 16-bit floats
+    moved as f32 (exactly: cast them back)."""
+    wide = _wide(t)
+    parts = [torch.empty_like(wide) for _ in range(world_size(group))]
+    dist.all_gather(parts, wide, group=group)
+    return parts
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Forward: the identity. Backward: the cotangents summed over the
+    model group (each rank's split branch gives part of the gradient of a
+    replicated input)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_f32(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Forward: the ranks' partial outputs summed. Backward: the identity
+    (the sum's cotangent is every rank's partial's)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        return all_reduce_f32(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """Forward: the ranks' column blocks joined along the last axis.
+    Backward: this rank's block of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.width, ctx.index = x.shape[-1], rank(group)
+        return torch.cat(all_gather_wide(x, group), dim=-1).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        at = ctx.index * ctx.width
+        return g[..., at:at + ctx.width].contiguous(), None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """`x` (replicated over the model group) as the input of split layers;
+    `x` itself when the group holds one rank or none."""
+    return _CopyToModel.apply(x, group) if reduces(group) else x
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over the model group of the ranks' partial `x`."""
+    return _ReduceFromModel.apply(x, group) if reduces(group) else x
+
+
+def gather_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """The model group's column blocks `x` joined along the last axis."""
+    return _GatherFromModel.apply(x, group) if reduces(group) else x
 
 
 def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
@@ -79,8 +176,8 @@ class _SumAcrossRanks(torch.autograd.Function):
 
 def backward(loss: torch.Tensor, group) -> None:
     """The backward of `loss`, the global loss that every rank of `group`
-    holds: seeded with 1/world on each rank (see above); `loss.backward()`
-    when nothing reduces."""
+    (the data group) holds: seeded with 1/world of that group on each
+    rank (see above); `loss.backward()` when nothing reduces."""
     if reduces(group):
         loss = loss / world_size(group)
     loss.backward()
@@ -158,8 +255,8 @@ def all_reduce_tensors_(tensors: Sequence[torch.Tensor], group,
 
 
 def broadcast_tensors_(tensors: Sequence[torch.Tensor], group, src: int = 0) -> None:
-    """Overwrite each tensor in place with rank `src`'s (no-op without a
-    group)."""
+    """Overwrite each tensor in place with global rank `src`'s, a member of
+    `group` (no-op without a group)."""
     if group is None:
         return
     for t in tensors:

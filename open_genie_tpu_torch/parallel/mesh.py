@@ -11,11 +11,16 @@ the global batch (the ranks' local batches concatenated in rank order, as
   * data parallel: `init_distributed` joins the ranks, `make_mesh` names
     the axes, the loaders feed each rank a disjoint stride of the data
     (`trainer.build_loader`), the train step all-reduces the gradients by
-    sum (`train.loop.make_train_step(group=)`).
+    sum (`train.loop.make_train_step(mesh=)`).
   * tensor parallel: `TP_RULES` / `param_shardings` say which axis of each
-    parameter the `model` axis would split (the JAX package's rules in the
-    port's names and layouts). Nothing executes them yet: a `model` axis
-    above 1 raises in the trainer (ROADMAP.md, Queue 1: the TP slice).
+    parameter the `model` axis splits (the JAX package's rules in the
+    port's names and layouts); `parallel/tensor.py` places each rank's
+    slices and the split modules run them with the `model` group's
+    collectives (`collectives.copy_to_model` and its kin).
+
+Rank `r` of an `(n_data, n_model)` mesh sits at `(r // n_model, r %
+n_model)`, as the JAX package's `reshape(n_data, n_model)` of its
+devices: the ranks of one data shard are consecutive.
 """
 from __future__ import annotations
 
@@ -79,12 +84,20 @@ class Mesh:
     """A `(data, model)` mesh of ranks, one device each. `rank` is this
     process's; `group` the process group of the run, None in one process
     (a mesh of several ranks without one describes a rank of it, as a
-    one-process reference of a run rebuilds each rank's loader)."""
+    one-process reference of a run rebuilds each rank's loader).
+
+    `data_group` joins the ranks that hold the same slices of the weights
+    and different rows of the batch (this rank's column of the mesh: the
+    gradients and the losses' batch statistics reduce over it);
+    `model_group` the ranks of this rank's data shard, which split the
+    weights (its row). Each is None where it would hold one rank."""
 
     n_data: int
     n_model: int = 1
     rank: int = 0
     group: Any = None
+    data_group: Any = None
+    model_group: Any = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -95,13 +108,28 @@ class Mesh:
         """The mesh's ranks."""
         return self.n_data * self.n_model
 
+    @property
+    def data_index(self) -> int:
+        """This rank's data shard: its row of the mesh."""
+        return self.rank // self.n_model
+
+    @property
+    def model_index(self) -> int:
+        """This rank's slice of the split weights: its column."""
+        return self.rank % self.n_model
+
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
               world: Optional[int] = None) -> Mesh:
     """A `(data, model)` mesh over the run's ranks (`world`, default the
     run's size, 1 outside a run), one device a rank; `n_data=None` takes
     every rank. More ranks than the run has raises; fewer take the leading
-    ranks, as the JAX package takes the leading devices."""
+    ranks, as the JAX package takes the leading devices (a `model` axis
+    above 1 must then span the whole run).
+
+    In a run, every rank creates every data and model group, in the same
+    order (`torch.distributed.new_group` is collective); a group that
+    spans the run is the run's own group."""
     joined = dist.is_available() and dist.is_initialized()
     if world is None:
         world = dist.get_world_size() if joined else 1
@@ -110,8 +138,29 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
     want = n_data * n_model
     if want > world:
         raise ValueError(f"mesh {n_data}x{n_model} needs {want} devices, have {world}")
-    return Mesh(n_data, n_model, dist.get_rank() if joined else 0,
-                dist.group.WORLD if joined else None)
+    if not joined:
+        return Mesh(n_data, n_model)
+    rank = dist.get_rank()
+    if n_model == 1:  # data parallel: the run's group is the data group
+        return Mesh(n_data, 1, rank, dist.group.WORLD, dist.group.WORLD)
+    if want != world:
+        raise ValueError(f"a mesh {n_data}x{n_model} with a model axis must span the run's "
+                         f"{world} ranks")
+    grid = np.arange(want).reshape(n_data, n_model)
+    model_groups = [_group(row.tolist(), world) for row in grid]
+    data_groups = [_group(col.tolist(), world) for col in grid.T]
+    return Mesh(n_data, n_model, rank, dist.group.WORLD,
+                data_groups[rank % n_model], model_groups[rank // n_model])
+
+
+def _group(ranks, world: int):
+    """The process group of `ranks` (created on every rank); None for one
+    rank, the run's own group for all of them."""
+    if len(ranks) == 1:
+        return None
+    if len(ranks) == world:
+        return dist.group.WORLD
+    return dist.new_group(ranks)
 
 
 def rank_device(device, mesh: Mesh) -> torch.device:
@@ -126,11 +175,16 @@ def rank_device(device, mesh: Mesh) -> torch.device:
 
 def rank_seed(seed: int, mesh: Mesh) -> int:
     """The seed of this rank's per-sample noise (frame picks, Gumbel,
-    Bernoulli masks, dropout): `seed` itself in one process, one stream a
-    rank, all apart from `seed`'s, otherwise."""
-    if mesh.world == 1:
+    Bernoulli masks, dropout): one stream a data shard, all apart from
+    `seed`'s, and `seed` itself where the mesh has one data shard (one
+    process, or one row of model ranks, whose noise is then one
+    process's). Keyed on the data index, so the model ranks of a shard
+    draw the same noise for the same rows and their replicated
+    activations stay equal."""
+    if mesh.n_data == 1:
         return seed
-    return int(np.random.SeedSequence([seed, mesh.rank]).generate_state(1, np.uint64)[0] >> 1)
+    return int(np.random.SeedSequence([seed, mesh.data_index]).generate_state(
+        1, np.uint64)[0] >> 1)
 
 
 @dataclass(frozen=True)
@@ -150,7 +204,7 @@ class BatchSharding:
 
 def batch_sharding(mesh: Mesh) -> BatchSharding:
     """The leading (batch) axis split over `data`."""
-    return BatchSharding(mesh.rank // mesh.n_model, mesh.n_data)
+    return BatchSharding(mesh.data_index, mesh.n_data)
 
 
 def replicated(mesh: Mesh) -> BatchSharding:

@@ -393,10 +393,10 @@ class TrainerConfig:
     # checkpoint is separate and always kept). None = keep everything.
     ckpt_max_keep: Optional[int] = 2
     seed: int = 31415
-    # Mesh axes (`parallel.mesh.make_mesh`): `n_data` data-parallel ranks,
-    # one process and device each (None = every rank of the run; more than
-    # the run has raises); `n_model` tensor-parallel ways (above 1 raises:
-    # not ported yet, ROADMAP.md Queue 1).
+    # Mesh axes (`parallel.mesh.make_mesh`): `n_data` data-parallel shards
+    # of `n_model` tensor-parallel ranks, one process and device a rank
+    # (n_data None = every rank of the run over n_model; a mesh other than
+    # the run's ranks raises).
     n_data: Optional[int] = None
     n_model: int = 1
     gan_alternate: bool = False    # alternating G/D steps vs reference's sum

@@ -10,11 +10,19 @@ the forward, float batch leaves cast to bf16), on a `TrainState` that
 counts its calls. Checkpoints are torch files under `<ckpt_dir>/<step>/`,
 each written atomically.
 
-Data parallel (`make_train_step(group=)`): each rank runs the step on its
+Data parallel (`make_train_step(mesh=)`): each rank runs the step on its
 rows of the global batch, the losses reduce their batch statistics across
 the ranks (`parallel.collectives`), and the trainable gradients are summed
 over the ranks once per applied update, before the clip: the update of
 the JAX package's step on an `n_data` mesh.
+
+Tensor parallel (`make_train_step(mesh=)` on a mesh with a `model` axis,
+its module split by `parallel.tensor.shard_module`): the losses reduce
+over the data group, the gradients are summed over the data group only
+(a split parameter's within its slice), and the clip's global norm sums
+each split gradient's squares over the model group and each replicated
+one's once. AdamW's moments and the EMA are split like their parameters
+(the JAX package replicates them; the numbers are the same).
 """
 from __future__ import annotations
 
@@ -30,6 +38,8 @@ from torch import nn
 from torch.func import functional_call
 
 from open_genie_tpu_torch.parallel import collectives
+from open_genie_tpu_torch.parallel.mesh import Mesh
+from open_genie_tpu_torch.parallel.tensor import local_state, split_of
 
 Schedule = Union[float, Callable[[int], float]]
 
@@ -52,7 +62,9 @@ class AdamW:
     With a data-parallel `group`, an applied call first sums the gradients
     it applies (after accumulation) over the ranks, in flat buckets: each
     rank's gradients are its share of the global loss's, so the sum is the
-    global gradient, and its norm is the one clipped and returned.
+    global gradient, and its norm is the one clipped and returned. With a
+    `model_group` as well, the norm adds the split gradients' squares of
+    every model rank (`_global_norm`).
     """
 
     def __init__(self, named_params: Iterable[Tuple[str, nn.Parameter]],
@@ -78,7 +90,7 @@ class AdamW:
                     if ema_decay is not None else None)
 
     @torch.no_grad()
-    def step(self, group=None) -> Optional[torch.Tensor]:
+    def step(self, group=None, model_group=None) -> Optional[torch.Tensor]:
         """Accumulate and, on an applied call, reduce over `group`, clip
         and apply the gradients; returns this call's gradient norm before
         clipping. With accumulation on more than one rank, a call that
@@ -88,8 +100,13 @@ class AdamW:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
+        split = [split_of(p) is not None for p in self.params]
+
+        def global_norm(tensors):
+            return _global_norm(tensors, split, model_group)
+
         if self.acc is not None:
-            norm = None if collectives.reduces(group) else _global_norm(grads)
+            norm = None if collectives.reduces(group) else global_norm(grads)
             for a, g in zip(self.acc, grads):
                 a.add_((g - a) / (self.mini_step + 1))
             if self.mini_step < self.accum_steps - 1:
@@ -100,11 +117,11 @@ class AdamW:
                 a.zero_()
             self.mini_step = 0
             collectives.all_reduce_tensors_(grads, group)
-            clip_norm = _global_norm(grads)
+            clip_norm = global_norm(grads)
             norm = clip_norm if norm is None else norm
         else:
             collectives.all_reduce_tensors_(grads, group)
-            norm = clip_norm = _global_norm(grads)
+            norm = clip_norm = global_norm(grads)
         if self.grad_clip:
             scale = torch.where(clip_norm < self.grad_clip, 1.0, self.grad_clip / clip_norm)
             for g in grads:
@@ -144,10 +161,17 @@ class AdamW:
                     dst.copy_(src)
 
 
-def _global_norm(tensors) -> torch.Tensor:
-    """optax's `global_norm`: the 2-norm of every element, in f32."""
-    return torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors]))
+def _global_norm(tensors, split=None, model_group=None) -> torch.Tensor:
+    """optax's `global_norm`: the 2-norm of every element, in f32. With a
+    `model_group`, the tensors flagged in `split` are this rank's slices:
+    their squares are summed over the group, the others' counted once."""
+    norms = [torch.linalg.vector_norm(t.float()) for t in tensors]
+    if not collectives.reduces(model_group):
+        return torch.linalg.vector_norm(torch.stack(norms))
+    sq = torch.stack(norms).square()
+    mine = torch.tensor(split, device=sq.device)
+    parts = torch.stack([sq[mine].sum(), sq[~mine].sum()])
+    return (collectives.all_reduce_f32(parts[:1], model_group)[0] + parts[1]).sqrt()
 
 
 def make_optimizer(
@@ -259,7 +283,7 @@ def make_train_step(
     optimizer: Optional[AdamW] = None,
     compute_dtype: Optional[torch.dtype] = None,
     loss_kwargs: Optional[Dict[str, Any]] = None,
-    group=None,
+    mesh: Mesh = Mesh(1),
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Build `step(batch, **kwargs) -> metrics`: one forward, backward and
     optimizer call of `module(batch, **loss_kwargs, **kwargs)`, which
@@ -277,17 +301,22 @@ def make_train_step(
     (this call's global norm over the trainable parameters, before
     clipping; see `AdamW.step` for accumulation on several ranks).
 
-    With a data-parallel `group` (a `torch.distributed` process group),
-    every rank calls the step on its rows of the global batch: the module
-    gets `group` (its losses and metrics are then the global batch's) and,
-    where the state has one, `rate_generator=state.shared_generator`; the
-    optimizer sums the gradients over the ranks. Building the step
-    broadcasts rank 0's parameters, buffers and EMA to every rank first.
+    On a `mesh` of several ranks (`parallel.mesh.make_mesh` inside the
+    run), every rank calls the step on its data shard's rows of the global
+    batch: the module gets the mesh's data group as `group` (its losses
+    and metrics are then the global batch's) and, where the state has
+    one, `rate_generator=state.shared_generator`; the optimizer sums the
+    gradients over the data group. Building the step broadcasts the first
+    data shard's parameters, buffers and EMA to the other shards (rank
+    `model_index`, whose slices match). On a mesh with a `model` axis the
+    module is split (`parallel.tensor.shard_module`) and the gradient norm
+    spans the model group (`AdamW.step`).
     """
     if not isinstance(state, TrainState):
         state = TrainState(state, optimizer)
     module, optimizer = state.module, state.optimizer
     loss_kwargs = dict(loss_kwargs or {})
+    group, model_group = mesh.data_group, mesh.model_group
     run = _LossAndBackward(module, group)
     pass_generator = takes_kwarg(module, "generator")
     pass_group = group is not None and takes_kwarg(module, "group")
@@ -296,7 +325,7 @@ def make_train_step(
         with torch.no_grad():
             collectives.broadcast_tensors_(
                 [t.detach() for t in (*module.parameters(), *module.buffers())]
-                + list((optimizer.ema or {}).values()), group)
+                + list((optimizer.ema or {}).values()), group, mesh.model_index)
 
     def step(batch, **kwargs) -> Dict[str, torch.Tensor]:
         kwargs = {**{k: v(state.step) if callable(v) else v for k, v in loss_kwargs.items()},
@@ -314,7 +343,7 @@ def make_train_step(
             loss, metrics = functional_call(
                 run, params, (_cast_batch(batch, compute_dtype), kwargs)
             )
-        grad_norm = optimizer.step(group)
+        grad_norm = optimizer.step(group, model_group)
         optimizer.zero_grad()
         state.step += 1
         out = {k: v.detach() if isinstance(v, torch.Tensor) else torch.tensor(v)
@@ -372,9 +401,12 @@ class CheckpointWriter:
         self.dir = os.path.abspath(ckpt_dir)
         self.max_to_keep = max_to_keep
 
-    def save(self, state: TrainState, step: Optional[int] = None) -> float:
-        """Write `state` as step `step` (default `state.step`); returns the
-        seconds the write took."""
+    def save(self, state: TrainState, step: Optional[int] = None,
+             payload: Optional[Tuple[Dict[str, Any], Dict[str, Any]]] = None) -> float:
+        """Write `state` as step `step` (default `state.step`), or the
+        `(params, train_state)` of `payload` in its place (a split state
+        gathered into the one-process layout, `parallel.tensor.gather_state`);
+        returns the seconds the write took."""
         t0 = time.perf_counter()
         step = state.step if step is None else int(step)
         os.makedirs(self.dir, exist_ok=True)
@@ -382,8 +414,9 @@ class CheckpointWriter:
         tmp = os.path.join(self.dir, f".tmp-{step}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        torch.save(state.module.state_dict(), os.path.join(tmp, PARAMS_FILE))
-        torch.save(state.train_state_dict(), os.path.join(tmp, STATE_FILE))
+        params, train_state = payload or (state.module.state_dict(), state.train_state_dict())
+        torch.save(params, os.path.join(tmp, PARAMS_FILE))
+        torch.save(train_state, os.path.join(tmp, STATE_FILE))
         if os.path.isdir(final):
             old = os.path.join(self.dir, f".old-{step}")
             shutil.rmtree(old, ignore_errors=True)
@@ -437,22 +470,26 @@ def restore_params(ckpt_dir: str, module: nn.Module) -> Tuple[nn.Module, int]:
     return module, step
 
 
-def restore_checkpoint(ckpt_dir: str, state: TrainState, rank: int = 0, world: int = 1
+def restore_checkpoint(ckpt_dir: str, state: TrainState, mesh: Mesh = Mesh(1)
                        ) -> Tuple[TrainState, int]:
     """Restore the latest checkpoint into `state` in place: parameters,
     optimizer (EMA, accumulation), generator and step; `(state, step)`,
-    step 0 and the state untouched when there is none. Rank `rank` of a
-    run of `world` takes its own generator's state from a checkpoint of a
-    run as wide, and keeps the one it has from any other."""
+    step 0 and the state untouched when there is none. Rank `mesh.rank`
+    takes its own generator's state from a checkpoint of a run as wide; a
+    mesh of one data shard (one process, or one row of model ranks) takes
+    rank 0's, whose stream is one process's; any other keeps the one it
+    has. A state split over the mesh's model axis loads its slices of the
+    checkpoint, which holds the one-process layout whatever mesh wrote
+    it."""
     if latest_step(ckpt_dir) is None:
         return state, 0
     ckpt, step = load_checkpoint(ckpt_dir)
-    state.module.load_state_dict(ckpt["params"])
-    saved = ckpt["train_state"]
+    params, saved = local_state(state, ckpt["params"], ckpt["train_state"], mesh)
+    state.module.load_state_dict(params)
     state.optimizer.load_state_dict(saved["optimizer"])
     gens = saved.get("rank_generators")
-    mine = (gens[rank] if gens is not None and len(gens) == world
-            else saved["generator"] if world == 1 else None)
+    mine = (gens[mesh.rank] if gens is not None and len(gens) == mesh.world
+            else saved["generator"] if mesh.n_data == 1 else None)
     if state.generator is not None and mine is not None:
         state.generator.set_state(mine)
     if state.shared_generator is not None and saved.get("shared_generator") is not None:

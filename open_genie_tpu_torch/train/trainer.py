@@ -4,14 +4,16 @@
 `train_tokenizer`, `train_action`, `train_dynamics` and `train_genie` take
 an `ExperimentConfig` and run on `device` ("cuda" unless the caller asks
 for the CPU). Launched once per rank with the `OGT_*` variables
-(`parallel.mesh.init_distributed`), they train data-parallel over
-`trainer.n_data` ranks, one device each (`cuda:{rank % device_count}`):
-each rank loads its stride of the data and the step is the global
-batch's; rank 0 alone logs and writes checkpoints. `trainer.n_model`
-above 1 (tensor parallelism) raises. Weights start from `trainer.seed`
-(`utils.init_weights`), then from the warm-start checkpoints the config
-names. Checkpoints, validation, logging and the profiler window follow the
-JAX package's loop (`_run_loop`).
+(`parallel.mesh.init_distributed`), they train over a `(trainer.n_data,
+trainer.n_model)` mesh of ranks, one device each (`cuda:{rank %
+device_count}`): each data shard loads its stride of the data and the
+step is the global batch's; with `n_model` above 1 the ranks of a shard
+split the weights (`parallel.tensor.shard_module`: tensor parallelism).
+Rank 0 alone logs and writes checkpoints, in the one-process layout.
+Weights start from `trainer.seed` (`utils.init_weights`), then from the
+warm-start checkpoints the config names, whole on every rank, before
+each rank keeps its slices. Checkpoints, validation, logging and the
+profiler window follow the JAX package's loop (`_run_loop`).
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ from open_genie_tpu_torch.parallel.mesh import (
     rank_seed,
     replicated,
 )
+from open_genie_tpu_torch.parallel.tensor import gather_state, shard_module
 from open_genie_tpu_torch.train.config import (
     DynamicsModelConfig,
     ExperimentConfig,
@@ -80,21 +83,21 @@ def resolve_device(device, what: str = "training") -> torch.device:
 def setup_mesh(tcfg, device) -> Tuple[Mesh, torch.device]:
     """`(mesh, this rank's device)`: the run the `OGT_*` variables name
     joined (none: one process), as the JAX trainer's `init_distributed()`
-    and `make_mesh(n_data, n_model)`. One process a data rank: `n_data`
-    (None: every rank) above the run's ranks raises JAX's oversubscription
-    message, below them raises; `n_model` above 1 raises. On more than one
-    rank the global RNG (dropout) is seeded per rank."""
-    if (tcfg.n_model or 1) > 1:
-        raise NotImplementedError(
-            f"trainer.n_model={tcfg.n_model}: tensor parallelism is not ported yet "
-            "(ROADMAP.md, Queue 1: the TP slice); the port trains data-parallel, n_model: 1")
+    and `make_mesh(n_data, n_model)`. One process a rank of the mesh:
+    `n_data x n_model` (`n_data` None: every rank over `n_model`) above the
+    run's ranks raises JAX's oversubscription message, below them raises.
+    On more than one data shard the global RNG (dropout) is seeded per
+    shard, the same on the model ranks of one; with one data shard it is
+    left as one process leaves it."""
+    n_model = tcfg.n_model or 1
     init_distributed(device=device)
-    mesh = make_mesh(tcfg.n_data, 1)
+    mesh = make_mesh(tcfg.n_data, n_model)
     ranks = collectives.world_size(mesh.group)
-    if mesh.n_data != ranks:
-        raise ValueError(f"trainer.n_data={tcfg.n_data} on {ranks} processes: the port "
-                         "runs one process a data rank (launch n_data, or unset n_data)")
-    if mesh.world > 1:
+    if mesh.world != ranks:
+        raise ValueError(f"trainer.n_data={tcfg.n_data} x n_model={n_model} on {ranks} "
+                         "processes: the port runs one process a rank of the mesh (launch "
+                         "n_data x n_model, or unset n_data)")
+    if mesh.n_data > 1:
         torch.manual_seed(rank_seed(tcfg.seed, mesh))
     return mesh, rank_device(device, mesh)
 
@@ -458,10 +461,10 @@ def _make_val_fn(module: nn.Module, compute_dtype, seed: int, mesh: Mesh) -> Cal
     shared, on a `mesh` of several ranks, whose metrics are the global
     batch's)."""
     kwargs = {"train": False} if takes_kwarg(module, "train") else {}
-    if mesh.group is not None and takes_kwarg(module, "group"):
-        kwargs["group"] = mesh.group
+    if mesh.data_group is not None and takes_kwarg(module, "group"):
+        kwargs["group"] = mesh.data_group
     with_gen = takes_kwarg(module, "generator")
-    with_rate = mesh.world > 1 and takes_kwarg(module, "rate_generator")
+    with_rate = mesh.n_data > 1 and takes_kwarg(module, "rate_generator")
 
     @torch.no_grad()
     def val_fn(batch, step: int) -> Dict[str, torch.Tensor]:
@@ -521,28 +524,35 @@ def make_eval_video_hook(module: GenieTrainModule, tcfg, size: int = 64,
 def _fit(cfg: ExperimentConfig, module: nn.Module, dataset, device, resume: bool,
          frozen: Tuple[str, ...] = (), loss_kwargs: Optional[dict] = None,
          val_dataset=None, eval_hook=None, mesh: Mesh = Mesh(1)) -> TrainState:
-    """The part every stage shares: loaders, optimizer (with the frozen
+    """The part every stage shares: loaders, this rank's slices of the
+    module (on a mesh with a model axis), optimizer (with the frozen
     prefixes), train state with its generators, resume, train step (over
     `mesh`'s ranks), validation, config snapshot, then the loop."""
     tcfg = cfg.trainer
     loader = build_loader(cfg, dataset, device, mesh=mesh)
+    shard_module(module, mesh)
     mask = frozen_param_mask(module, frozen) if frozen else None
     optimizer = make_optimizer(module, **_opt_kwargs(cfg.model.optimizer), frozen_mask=mask)
-    shared = torch.Generator(device).manual_seed(tcfg.seed) if mesh.world > 1 else None
+    shared = torch.Generator(device).manual_seed(tcfg.seed) if mesh.n_data > 1 else None
     state = TrainState(module, optimizer,
                        torch.Generator(device).manual_seed(rank_seed(tcfg.seed, mesh)),
                        shared_generator=shared)
     start_step = 0
     if resume:
-        state, start_step = restore_checkpoint(tcfg.ckpt_dir, state, mesh.rank, mesh.world)
+        state, start_step = restore_checkpoint(tcfg.ckpt_dir, state, mesh=mesh)
     compute_dtype = _compute_dtype(tcfg.precision)
     step_fn = make_train_step(state, compute_dtype=compute_dtype, loss_kwargs=loss_kwargs,
-                              group=mesh.group)
+                              mesh=mesh)
     val_loader = val_fn = None
     if tcfg.val_check_interval and val_dataset is not None:
         val_loader = build_loader(cfg, val_dataset, device, split="val", mesh=mesh)
         val_fn = _make_val_fn(module, compute_dtype, tcfg.seed + 1, mesh)
     else:
+        eval_hook = None
+    if eval_hook is not None and mesh.n_model > 1:
+        # The sample video is a rollout, which runs on whole weights only.
+        if mesh.rank == 0:
+            print("# sample videos are off under tensor parallelism (no TP rollout)")
         eval_hook = None
     if mesh.rank == 0:
         save_config_snapshot(tcfg.ckpt_dir, cfg)
@@ -661,9 +671,10 @@ def _run_loop(
     the checkpoint left it.
 
     On a `mesh` of several ranks every rank steps, validates and takes
-    part in each save (the ranks' generator states are gathered into it),
-    but only rank 0 logs, purges, writes the checkpoint (as orbax's
-    primary host does) and runs `eval_hook`; a barrier follows each save."""
+    part in each save (the ranks' generator states are gathered into it,
+    and a split state into the one-process layout), but only rank 0 logs,
+    purges, writes the checkpoint (as orbax's primary host does) and runs
+    `eval_hook`; a barrier follows each save."""
     primary = mesh.rank == 0
     if len(loader) == 0:
         raise ValueError(
@@ -701,8 +712,10 @@ def _run_loop(
         if mesh.world > 1:
             state.rank_generators = collectives.gather_objects(state.generator.get_state(),
                                                                mesh.group)
+        # Every rank gathers a split state; rank 0 writes it whole.
+        payload = gather_state(state, mesh) if mesh.n_model > 1 else None
         if primary:
-            seconds = writer.save(state, step)
+            seconds = writer.save(state, step, payload=payload)
             print(f"# {label} checkpoint step {step}: {seconds:.3f} s to {writer.dir}/{step}",
                   flush=True)
         collectives.barrier(mesh.group)

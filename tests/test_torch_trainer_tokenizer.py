@@ -216,7 +216,8 @@ def test_gan_alternate_branch_follows_the_step_across_a_resume(tmp_path, monkeyp
 def test_entry_points_need_cuda_or_an_explicit_cpu(tmp_path):
     """Without CUDA a stage, the CLI and tokenize-data raise unless the
     caller asks for the CPU; more data ranks than processes raise JAX's
-    oversubscription message, a model axis names the TP slice; a gvid source
+    oversubscription message, and so does a model axis wider than the
+    processes (tensor parallelism needs n_data x n_model); a gvid source
     with no file for the split raises before anything is written."""
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA: the entry points would run")
@@ -233,7 +234,7 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(tmp_path):
     with pytest.raises(ValueError, match="mesh 2x1 needs 2 devices, have 1"):
         ttrainer.train_tokenizer(cfg, device="cpu")
     cfg.trainer.n_data, cfg.trainer.n_model = 1, 2
-    with pytest.raises(NotImplementedError, match="the TP slice"):
+    with pytest.raises(ValueError, match="mesh 1x2 needs 2 devices, have 1"):
         ttrainer.train_tokenizer(cfg, device="cpu")
     cfg.trainer.n_model = 1
     cfg.trainer.n_data, cfg.data.source, cfg.data.root = 1, "gvid", str(tmp_path)

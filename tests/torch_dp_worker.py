@@ -10,7 +10,7 @@ The test process has written into the work dir what the ranks run:
 and the noise JAX drew for it), `lfq.pt`, `rollout.pt`, the YAMLs of two
 `cli train` runs and `genie.yaml`. For each case the rank takes its rows of the batch and of the
 noise, runs the naive data-parallel step (local means, gradients averaged
-over the ranks: the control) and then `make_train_step(group=)`, and
+over the ranks: the control) and then `make_train_step(mesh=)`, and
 keeps the metrics, the gradients the optimizer applied and the
 parameters; then the LFQ losses' value and input gradient on its rows
 of `lfq.pt`'s features; then two micro-steps of gradient accumulation on the
@@ -86,7 +86,7 @@ def run_case(spec, group):
         return adamw_step(*args, **kwargs)
 
     opt.adamw.step = spy
-    metrics = make_train_step(module, opt, group=group)(batch, **noise)
+    metrics = make_train_step(module, opt, mesh=make_mesh())(batch, **noise)
     return {"naive": naive, "metrics": _floats(metrics), "grads": applied,
             "params": {n: p.detach().clone() for n, p in module.named_parameters()}}
 
@@ -117,15 +117,14 @@ def run_accumulation(spec, group):
     one process (no group): the gradients each update applies, the
     gradient all-reduces of each micro-step and its metrics' names."""
     from open_genie_tpu_torch.parallel import collectives
-    from open_genie_tpu_torch.parallel.mesh import batch_sharding, make_mesh, place_batch
+    from open_genie_tpu_torch.parallel.mesh import Mesh, batch_sharding, make_mesh, place_batch
     from open_genie_tpu_torch.train.loop import make_optimizer, make_train_step
 
-    shard = batch_sharding(make_mesh())
     second = {**spec["batch"], "tokens": (spec["batch"]["tokens"] + 1) % DYNAMICS_VOCAB}
     micro = [(spec["batch"], spec["noise"]), (second, spec["noise"])]
     reduce = collectives.all_reduce_tensors_
     out = {}
-    for name, grp in (("dp", group), ("one", None)):
+    for name, mesh in (("dp", make_mesh()), ("one", Mesh(1))):
         if name == "one" and dist.get_rank(group) != 0:
             break
         module = _module(spec)
@@ -142,12 +141,11 @@ def run_accumulation(spec, group):
             return reduce(tensors, g, *args, **kwargs)
 
         opt.adamw.step, collectives.all_reduce_tensors_ = spy, counted
-        step = make_train_step(module, opt, group=grp)
+        step = make_train_step(module, opt, mesh=mesh)
         keys = []
         for batch, noise in micro:
             calls.append(0)
-            if grp is not None:
-                batch, noise = place_batch(batch, shard), place_batch(noise, shard)
+            batch, noise = (place_batch(t, batch_sharding(mesh)) for t in (batch, noise))
             keys.append(sorted(step(batch, **noise)))
         collectives.all_reduce_tensors_ = reduce
         out[name] = {"grads": applied, "reduce_calls": calls, "metric_keys": keys}
@@ -181,9 +179,9 @@ def run_cli(work, group):
         loaded.append((len(self.dataset), i * self.num_shards + self.shard))
         return get(self, i)
 
-    def spy_save(self, state, step=None):
+    def spy_save(self, state, step=None, **kwargs):
         written.append((os.path.basename(self.dir), step))
-        return save(self, state, step)
+        return save(self, state, step, **kwargs)
 
     DatasetShard.__getitem__, CheckpointWriter.save = spy_get, spy_save
     cli.main(["train", "tokenizer", "--config", os.path.join(work, "cli_A.yaml"),
