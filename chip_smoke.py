@@ -198,10 +198,22 @@ a 512 x 262144 head and a 262144 x 512 token embedding split in two), one
 f32 step held to one process. 30c, `cli train genie` on a genie.yaml copy
 with `trainer.n_model: 2` (f32, lr 1e-5, 3 steps): one checkpoint, by
 rank 0, in the one-process layout, which `cli train genie --resume` on
-one process continues to the TP run's step 3 within 1e-5 relative. Then
-K1, K3 and K4 at the per-rank shapes as CUDA graphs beside SDPA, aten and
-the bounds (with phase 28's).
-Every line of a time or a memory size in phases 16 to 30 carries the
+one process continues to the TP run's step 3 within 1e-5 relative; the
+validation at step 3 writes the sample video, by rank 0 alone from the
+gathered weights. Then K1, K3 and K4 at the per-rank shapes as CUDA graphs
+beside SDPA, aten and the bounds (with phase 28's).
+Phases 31 to 33 run after 26 (they read phase 22's checkpoint). 31: `cli
+train genie` on a copy of configs/r05b_genie.yaml whose `tokenizer_ckpt`
+is phase 22's checkpoint (the flagship joint step: 2^18 tokens over the
+frozen MAGVIT2 d=18, 2 x 16 x 64x64, bf16): 4 steps with a save at 3,
+then a run resumed from it whose step 4 equals the uninterrupted one's
+(loss and grad norm); K1 to K4 every step (K1, K3, K4 on the tensor cores
+at `PATH_CASES["r05b_genie_train"]`, K2 at a shape phase 4 checks). 32:
+`cli train tokenizer` on configs/r05_tokenizer.yaml as phase 22 (no
+kernel on its path). 33: phase 22's weights written as a reference
+(open-genie) `state_dict` (`reference_state_dict`), `cli import-ckpt`
+(bit for bit) and one step of `cli train tokenizer --resume` from it.
+Every line of a time or a memory size in phases 16 to 33 carries the
 card's name and power limit. The line before the last is a JSON summary
 of the kernels (`launches` on one step or call of the newest path that
 runs each, and the counts by path; the variant, and the kernel's, the
@@ -318,9 +330,17 @@ PATH_CASES = {
     # shapes, and its validation's over a batch of the 8 validation shards.
     "trainer_dynamics": [(4096, 256, 64, False), (65536, 16, 64, True),
                          (1024, 256, 64, False), (16384, 16, 64, True)],
-    # `cli train tokenizer` on `configs/r05b_tokenizer.yaml`: the MAGVIT2
-    # stacks have no attention and the YAML turns the discriminator off.
+    # `cli train tokenizer` on `configs/r05b_tokenizer.yaml` (and r05's,
+    # phase 32): the MAGVIT2 stacks have no attention and the YAML turns the
+    # discriminator off.
     "r05b_train": [],
+    # Phase 31, `cli train genie` on `configs/r05b_genie.yaml` at 2 x 16 x
+    # 64x64: the latent action's spatial at 64x64 and 32x32 and temporal,
+    # the dynamics' over 4 frames of 8x8 tokens (the frozen MAGVIT2 has no
+    # attention).
+    "r05b_genie_train": [(128, 4096, 16, False), (128, 1024, 16, False),
+                         (32768, 16, 16, True), (8192, 16, 16, True), (64, 64, 64, False),
+                         (1024, 4, 64, True)],
     # `cli train tokenizer` on tokenize.yaml reading the .gvid file of
     # phase 23 (the stage-1 step's shapes), and `cli eval tokenizer` on its
     # checkpoint (in f32, on the CUDA cores, at the stage-1 evaluation's).
@@ -2708,7 +2728,14 @@ R05B_OVERRIDES = {
               "optimizer": {"warmup_steps": 2, "decay_steps": 8}}}
 
 
-def phase_trainer_r05b(dev, smi: str, work: Path) -> dict:
+# Phase 32's copy of configs/r05_tokenizer.yaml (r05b's without the
+# bit-balance anneal): phase 22's clips, warm-up and decay.
+R05_OVERRIDES = {"data": R05B_OVERRIDES["data"],
+                 "model": {"optimizer": R05B_OVERRIDES["model"]["optimizer"]}}
+
+
+def phase_trainer_r05b(dev, smi: str, work: Path, name: str = "r05b_tokenizer.yaml",
+                       overrides: dict = R05B_OVERRIDES, label: str = "r05b") -> dict:
     """`cli train tokenizer --config configs/r05b_tokenizer.yaml` at full
     width (MAGVIT2 d = 18, the streaming decoder, EMA 0.999, cosine with
     `end_lr_scale` over warm-up 2 and decay 8, the bit-balance anneal from
@@ -2719,14 +2746,16 @@ def phase_trainer_r05b(dev, smi: str, work: Path) -> dict:
     tensors, recorded after each update; it must move far beyond its f32
     bound for that to catch a fault), no launch of K5/K6 (the entropy
     weight is 0) nor of K1, K3, K4 (no attention, no discriminator); the
-    checkpoint's size and write time."""
+    checkpoint's size and write time. Phase 32 runs `configs/r05_tokenizer.yaml`
+    the same way (`name`, `overrides`, `label`): r05b's model and objective
+    without the anneal, so every step's `bit_balance_scale` is 1."""
     from open_genie_tpu_torch.cli import main as cli
     from open_genie_tpu_torch.train.config import load_config
     from open_genie_tpu_torch.train.loop import AdamW, load_checkpoint
     from open_genie_tpu_torch.train.losses import TokenizerTrainModule
 
-    run = work / "r05b"
-    cfg = yaml_copy("r05b_tokenizer.yaml", work, {**R05B_OVERRIDES, **trainer_overrides(
+    run = work / label
+    cfg = yaml_copy(name, work, {**overrides, **trainer_overrides(
         run, max_steps=8, ckpt_every_n_steps=4)})
     mcfg = load_config(cfg, "tokenizer").model
     decay = mcfg.optimizer.ema_decay
@@ -2761,7 +2790,7 @@ def phase_trainer_r05b(dev, smi: str, work: Path) -> dict:
             cli(["train", "tokenizer", "--config", cfg, "--max-steps", "4"])
             watch.new_run()
             state = cli(["train", "tokenizer", "--config", cfg, "--resume"])
-            assert_trainer_launches("trainer r05b", "r05b_train", watch.steps, {
+            assert_trainer_launches(f"trainer {label}", "r05b_train", watch.steps, {
                 "flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0,
                 "flash_attention_bwd_dq": 0, "lfq_head": 0, "lfq_entropy_fwd": 0,
                 "lfq_entropy_bwd": 0})
@@ -2769,12 +2798,15 @@ def phase_trainer_r05b(dev, smi: str, work: Path) -> dict:
         TokenizerTrainModule.forward, AdamW.step = forward, opt_step
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     records = read_jsonl(run / "logs")
-    _finite_records("trainer r05b", records)
+    _finite_records(f"trainer {label}", records)
     floor = mcfg.lfq_bit_balance_anneal_floor
-    want = anneal_scales(8, mcfg.lfq_bit_balance_anneal_start,
-                         mcfg.lfq_bit_balance_anneal_steps, floor)
+    if mcfg.lfq_bit_balance_anneal_start is None:
+        want = [1.0] * 8
+    else:
+        want = anneal_scales(8, mcfg.lfq_bit_balance_anneal_start,
+                             mcfg.lfq_bit_balance_anneal_steps, floor)
+        assert floor == 0.05 and want[-1] == floor and want[-2] == floor
     assert scales == want, f"bit_balance_scale {scales}, the anneal gives {want}"
-    assert floor == 0.05 and scales[-1] == floor and scales[-2] == floor
     sched = mcfg.optimizer.schedule()
     lrs = [(r["step"], r["lr"]) for r in records if "loss" in r]
     assert [s for s, _ in lrs] == list(range(1, 9)), lrs
@@ -2790,12 +2822,12 @@ def phase_trainer_r05b(dev, smi: str, work: Path) -> dict:
              for s in watch.saves]
     steady = watch.steady_ms()
     ms = statistics.median(steady)
-    print(f"[trainer r05b] bit_balance_scale of steps 0-7 {scales}; the EMA (decay {decay}) "
+    print(f"[trainer {label}] bit_balance_scale of steps 0-7 {scales}; the EMA (decay {decay}) "
           f"after each of {len(trace)} updates against its float64 recursion: largest "
           f"|difference| {err:.3g} of its f32 bound, the checkpoint's (step {at}) "
           f"{ck_err:.3g}; the EMA moved a median {moved:.3g} bounds from the first update's "
           f"parameters; no K1-K6 launch")
-    print(f"[trainer r05b] {smi}: {ms:.1f} ms per step through the CLI (median of "
+    print(f"[trainer {label}] {smi}: {ms:.1f} ms per step through the CLI (median of "
           f"{len(steady)} steps, min {min(steady):.1f}, max {max(steady):.1f}); checkpoint "
           f"{size / 2 ** 30:.3f} GiB for {n_params / 1e6:.1f}M parameters (saves (step, s, GiB) "
           f"{saves}); peak memory {peak:.2f} GiB")
@@ -2805,6 +2837,256 @@ def phase_trainer_r05b(dev, smi: str, work: Path) -> dict:
     return {"ms": ms, "peak_gib": peak, "saves": watch.saves, "ema_err": err,
             "ema_moved": moved,
             "checkpoint_gib": size / 2 ** 30, "launches": watch.steps[-1]["launches"]}
+
+
+# Phase 31's copy of configs/r05b_genie.yaml: phase 22's checkpoint as its
+# frozen tokenizer (`tokenizer_ckpt`), synthetic clips of the YAML's 2 x 16
+# x 64x64, its bf16 and learning-rate schedule. The uninterrupted run takes
+# R05B_GENIE_STEPS steps and saves at R05B_GENIE_SAVE_AT; a second run
+# resumes that checkpoint for the steps after it.
+R05B_GENIE_STEPS, R05B_GENIE_SAVE_AT = 4, 3
+
+
+def phase_trainer_r05b_genie(dev, smi: str, work: Path) -> dict:
+    """Phase 31: `cli train genie` on a copy of configs/r05b_genie.yaml, the
+    flagship joint step: a 2^18-token dynamics (6 x 512) over the frozen
+    MAGVIT2 d=18 tokenizer of phase 22's checkpoint (its EMA), the latent
+    action at 64x64, bf16 on f32 weights, cuDNN deterministic and TF32 off.
+    R05B_GENIE_STEPS steps with a save at R05B_GENIE_SAVE_AT, then that
+    checkpoint resumed by a second run: its steps' losses and grad norms
+    equal to the uninterrupted run's. Every step launches K1, K3 and K4
+    (bf16, on the tensor cores, K1 at `PATH_CASES["r05b_genie_train"]`) and
+    K2 once (the frozen tokenize, at a shape phase 4 checks), no K5/K6;
+    finite logged terms; the checkpoint's tokenizer is phase 22's EMA. ms
+    per step, peak memory, the save's seconds and bytes."""
+    from open_genie_tpu_torch.cli import main as cli
+    from open_genie_tpu_torch.train.loop import all_steps, load_checkpoint
+    from open_genie_tpu_torch.train.trainer import checkpoint_ema
+
+    run, resumed = work / "r05b_genie", work / "r05b_genie_resumed"
+    tok_ckpt = work / "r05b" / "ckpt"
+    over = {"data": {"source": "synthetic", "root": ""},
+            "model": {"tokenizer_ckpt": str(tok_ckpt)}}
+    common = dict(max_steps=R05B_GENIE_STEPS, ckpt_every_n_steps=R05B_GENIE_SAVE_AT,
+                  save_last=False)
+    cfg = yaml_copy("r05b_genie.yaml", work, {**over, **trainer_overrides(run, **common)})
+    cfg_resumed = yaml_copy("r05b_genie.yaml", work, {**over, **trainer_overrides(
+        resumed, **common)})
+    torch.cuda.reset_peak_memory_stats()
+    with _Tf32Off(), TrainerWatch() as watch:
+        watch.new_run()
+        cli(["train", "genie", "--config", cfg])
+        _assert_path_kernels("trainer r05b genie", "r05b_genie_train")
+        k2 = _assert_k2_checked("trainer r05b genie")
+        first = len(watch.steps)
+        (resumed / "ckpt").mkdir(parents=True)
+        shutil.copytree(run / "ckpt" / str(R05B_GENIE_SAVE_AT),
+                        resumed / "ckpt" / str(R05B_GENIE_SAVE_AT))
+        shutil.copy(run / "ckpt" / "config.yaml", resumed / "ckpt" / "config.yaml")
+        watch.new_run()
+        state = cli(["train", "genie", "--config", cfg_resumed, "--resume"])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    per_step = watch.steps[1]["launches"]
+    assert all(s["launches"] == per_step for s in watch.steps), [
+        s["launches"] for s in watch.steps]
+    assert all(per_step[k] > 0 for k in _FLASH) and per_step["lfq_head"] == 1 and (
+        per_step["lfq_entropy_fwd"] == per_step["lfq_entropy_bwd"] == 0), per_step
+    assert state.step == R05B_GENIE_STEPS and first == R05B_GENIE_STEPS
+    assert all_steps(str(run / "ckpt")) == [R05B_GENIE_SAVE_AT]
+    records, again = read_jsonl(run / "logs"), read_jsonl(resumed / "logs")
+    _finite_records("trainer r05b genie", records + again)
+    steps = {r["step"]: r for r in records if "loss" in r}
+    later = {r["step"]: r for r in again if "loss" in r}
+    assert sorted(steps) == list(range(1, R05B_GENIE_STEPS + 1)), sorted(steps)
+    assert sorted(later) == list(range(R05B_GENIE_SAVE_AT + 1, R05B_GENIE_STEPS + 1))
+    diffs = {s: (later[s]["loss"] - steps[s]["loss"], later[s]["grad_norm"]
+                 - steps[s]["grad_norm"]) for s in later}
+    ckpt, _ = load_checkpoint(str(run / "ckpt"), params_only=True)
+    src, src_step = load_checkpoint(str(tok_ckpt))
+    ema = checkpoint_ema(src)
+    assert ema is not None
+    tok = {k: v for k, v in ckpt["params"].items() if k.startswith("model.tokenizer.")}
+    same = all(torch.equal(v, ema["model." + k[len("model.tokenizer."):]]) for k, v in tok.items())
+    steady = watch.steady_ms()
+    ms = statistics.median(steady)
+    save = watch.saves[0]
+    print(f"[trainer r05b genie] {smi}: cli train genie on r05b_genie.yaml (2 x 16 x 64x64, "
+          f"bf16, 2^18 tokens over phase 22's MAGVIT2 step {src_step} EMA): losses "
+          f"{[round(steps[s]['loss'], 5) for s in sorted(steps)]}, lr "
+          f"{[steps[s]['lr'] for s in sorted(steps)]}; launches per step {per_step}, K2 at "
+          f"{k2}; {ms:.1f} ms per step through the CLI (median of {len(steady)} steps, min "
+          f"{min(steady):.1f}, max {max(steady):.1f}); peak memory {peak:.2f} GiB; save at step "
+          f"{save['step']} {save['seconds']:.2f} s, {save['bytes'] / 2 ** 30:.3f} GiB; the "
+          f"checkpoint's {len(tok)} tokenizer tensors equal to phase 22's EMA: {same}")
+    print(f"[trainer r05b genie] resumed at step {R05B_GENIE_SAVE_AT}: (loss, grad norm) "
+          f"minus the uninterrupted run's at steps {sorted(diffs)}: {list(diffs.values())}")
+    assert same, "the frozen tokenizer is not phase 22's EMA"
+    assert all(d == (0.0, 0.0) for d in diffs.values()), f"the resumed run parts: {diffs}"
+    return {"ms": ms, "peak_gib": peak, "save_s": save["seconds"],
+            "checkpoint_gib": save["bytes"] / 2 ** 30, "launches": per_step,
+            "shapes": watch.steps[-1]["shapes"], "losses": [steps[s]["loss"] for s in sorted(steps)]}
+
+
+def reference_keys(tok) -> tuple:
+    """How a reference (open-genie) `VideoTokenizer` of the port's `tok`'s
+    blueprints lays out its `state_dict`: `({reference key: port key},
+    {reference buffer key: array})`. The reference nests each causal conv's
+    `conv3d`, names a downsampler `go_down` and an upsampler `go_up`, holds a
+    residual block as the indexed Sequentials `main` (GN, act, conv, [down],
+    GN, act, conv) and `res` ([down], 1x1 conv), and keeps its blur kernels
+    and the LFQ's bit mask as buffers. `utils/torch_import.py` inverts it
+    (`tests/test_torch_ref_import.py` holds both to the JAX package's
+    importer)."""
+    from open_genie_tpu_torch.modules.norm import AdaptiveGroupNorm, GroupNorm
+    from open_genie_tpu_torch.modules.video import (
+        BlurPooling3d,
+        CausalConv3d,
+        CausalConvTranspose3d,
+        DepthToSpaceTimeUpsample,
+        DepthToSpaceUpsample,
+        DepthToTimeUpsample,
+        SpaceTimeDownsample,
+        SpaceTimeUpsample,
+        VideoResidualBlock,
+    )
+
+    def params(mod, ref: str, port: str) -> dict:
+        return {f"{ref}{n}": f"{port}{n}" for n, _ in mod.named_parameters()}
+
+    def conv(mod, ref: str, port: str) -> dict:
+        if isinstance(mod, CausalConv3d):
+            return params(mod.conv3d, f"{ref}conv3d.", f"{port}conv3d.")
+        return params(mod, ref, port)
+
+    def residual(blk, port: str) -> tuple:
+        keys, buffers, j = {}, {}, 0
+        down = blk.down_main is not None
+        for part in ("norm1", "act", "conv1", "down", "norm2", "act", "conv2"):
+            if part == "down" and not down:
+                continue
+            if part.startswith("norm"):
+                keys.update(params(getattr(blk, part), f"main.{j}.", f"{port}{part}."))
+            elif part.startswith("conv"):
+                keys.update(conv(getattr(blk, part), f"main.{j}.", f"{port}{part}."))
+            elif isinstance(blk.down_main, BlurPooling3d):
+                buffers[f"main.{j}.blur"] = np.ones((3, 3, 3), np.float32)
+            elif part == "down":
+                keys.update(conv(blk.down_main.down, f"main.{j}.go_down.",
+                                 f"{port}down_main.down."))
+            j += 1
+        if down and isinstance(blk.down_res, BlurPooling3d):
+            buffers["res.0.blur"] = np.ones((3, 3, 3), np.float32)
+        elif down:
+            keys.update(conv(blk.down_res.down, "res.0.go_down.", f"{port}down_res.down."))
+        keys.update(conv(blk.res_proj, f"res.{int(down)}.", f"{port}res_proj."))
+        return keys, buffers
+
+    keys, buffers = {}, {"quant.bit_mask": 2 ** np.arange(8)[::-1]}
+    for stack in ("enc_layers", "dec_layers"):
+        for i, layer in enumerate(getattr(tok, stack)):
+            ref, port = f"{stack}.{i}.", f"{stack}.{i}."
+            if isinstance(layer, VideoResidualBlock):
+                k, b = residual(layer, port)
+                keys.update({ref + rk: pk for rk, pk in k.items()})
+                buffers.update({ref + rk: v for rk, v in b.items()})
+            elif isinstance(layer, GroupNorm):
+                keys.update(params(layer.gn, ref, f"{port}gn."))
+            elif isinstance(layer, AdaptiveGroupNorm):
+                keys.update(params(layer.std, f"{ref}std.", f"{port}std."))
+                keys.update(params(layer.avg, f"{ref}avg.", f"{port}avg."))
+                keys.update(params(layer.gn, ref, f"{port}gn."))
+            elif isinstance(layer, CausalConv3d):
+                keys.update(conv(layer, ref, port))
+            elif isinstance(layer, CausalConvTranspose3d):
+                keys.update(params(layer.conv_transpose3d, ref, f"{port}conv_transpose3d."))
+            elif isinstance(layer, SpaceTimeDownsample):
+                keys.update(conv(layer.down, f"{ref}go_down.", f"{port}down."))
+            elif isinstance(layer, DepthToSpaceTimeUpsample):
+                keys.update(conv(layer.conv, f"{ref}go_up.0.", f"{port}conv."))
+            elif isinstance(layer, SpaceTimeUpsample):
+                keys.update(params(layer.up, f"{ref}go_up.", f"{port}up."))
+            elif isinstance(layer, (DepthToSpaceUpsample, DepthToTimeUpsample)):
+                keys.update(params(layer.proj, f"{ref}go_up.0.", f"{port}proj."))
+            else:
+                assert not list(layer.parameters()), f"{stack}.{i}: {type(layer).__name__}"
+    keys.update(params(tok.quant, "quant.", "quant."))
+    return keys, buffers
+
+
+def reference_state_dict(tok, values=None, seed: int = 0) -> dict:
+    """A reference `VideoTokenizer` `state_dict` (`{key: array}`) for the
+    port's `tok`: each parameter's value from `values` (`{port key:
+    tensor}`), else drawn from a numpy `seed`; a depth-to-space (time)
+    upsampler's pointwise weight as the reference's Conv2d (Conv1d), the
+    reference's buffers, and a loss module's key beside them."""
+    keys, buffers = reference_keys(tok)
+    shapes = {k: tuple(p.shape) for k, p in tok.named_parameters()}
+    owners = dict(tok.named_modules())
+    pointwise = {"DepthToSpaceUpsample": (1, 1), "DepthToTimeUpsample": (1,)}
+    rng = np.random.default_rng(seed)
+    out = {}
+    for ref, port in keys.items():
+        shape = shapes[port]
+        owner = owners.get(port.rsplit(".", 2)[0]) if port.endswith(".proj.weight") else None
+        if type(owner).__name__ in pointwise:
+            shape = shape[:2] + pointwise[type(owner).__name__]
+        if values is None:
+            out[ref] = rng.standard_normal(shape).astype(np.float32)
+        else:
+            out[ref] = values[port].detach().cpu().numpy().reshape(shape)
+    out.update(buffers)
+    out["gan_crit.disc.proj_in.weight"] = np.zeros((4, 3, 3, 3), np.float32)
+    return out
+
+
+def phase_import_ckpt(dev, smi: str, work: Path) -> dict:
+    """Phase 33: `cli import-ckpt` (on the host) of phase 22's r05b
+    tokenizer at its last step, written as a reference (open-genie)
+    `state_dict` in an `.npz` (`reference_state_dict`): the step-0
+    checkpoint's tokenizer equal to phase 22's parameters bit for bit; then
+    `cli train tokenizer --resume` takes one step from it on the card (step
+    1 written beside the kept step 0, finite terms, no kernel launch: the
+    MAGVIT2 step has none). The import's seconds, the step's ms (with its
+    run's set-up) and peak memory."""
+    from open_genie_tpu_torch.cli import main as cli
+    from open_genie_tpu_torch.models.tokenizer import VideoTokenizer
+    from open_genie_tpu_torch.train.config import load_config
+    from open_genie_tpu_torch.train.loop import all_steps, load_checkpoint
+
+    run = work / "import"
+    cfg = yaml_copy("r05b_tokenizer.yaml", work, {**R05B_OVERRIDES, **trainer_overrides(
+        run, max_steps=1, ckpt_every_n_steps=1)})
+    src, src_step = load_checkpoint(str(work / "r05b" / "ckpt"), params_only=True)
+    want = {k[len("model."):]: v for k, v in src["params"].items() if k.startswith("model.")}
+    with torch.device("meta"):
+        tok = VideoTokenizer(**load_config(cfg, "tokenizer").model.tokenizer_kwargs())
+    run.mkdir(parents=True)
+    npz = run / "reference.npz"
+    np.savez(npz, **reference_state_dict(tok, want))
+    t0 = time.perf_counter()
+    cli(["import-ckpt", "--ckpt", str(npz), "--config", cfg, "--out", str(run / "ckpt")])
+    import_s = time.perf_counter() - t0
+    step0, at = load_checkpoint(str(run / "ckpt"), params_only=True)
+    bad = [k for k, v in want.items() if not torch.equal(step0["params"]["model." + k], v)]
+    torch.cuda.reset_peak_memory_stats()
+    with TrainerWatch() as watch:
+        watch.new_run()
+        state = cli(["train", "tokenizer", "--config", cfg, "--resume"])
+        assert_trainer_launches("import resume", "r05b_train", watch.steps, {
+            name: 0 for name in _read_counts()})
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    records = read_jsonl(run / "logs")
+    _finite_records("import resume", records)
+    ms = watch.steps[0]["ms"]
+    print(f"[import ckpt] {smi}: phase 22's r05b tokenizer (step {src_step}, {len(want)} "
+          f"tensors, {npz.stat().st_size / 2 ** 30:.3f} GiB of .npz) imported in {import_s:.1f} s "
+          f"to step {at}; tensors not bit-equal to phase 22's: {len(bad)}; resumed on the card "
+          f"to step {state.step} ({ms:.1f} ms with the run's set-up, loss "
+          f"{records[-1].get('loss')}); steps kept {all_steps(str(run / 'ckpt'))}; peak "
+          f"memory {peak:.2f} GiB")
+    assert at == 0 and not bad, f"imported tensors differ from phase 22's: {bad[:5]}"
+    assert state.step == 1 and all_steps(str(run / "ckpt")) == [0, 1]
+    return {"import_s": import_s, "ms": ms, "peak_gib": peak, "launches": watch.steps[0]["launches"]}
 
 
 # Keys of the JAX package's reports (`open_genie_tpu/eval.py`):
@@ -3502,7 +3784,8 @@ DP_STEPS, DP_RESUME_AT, DP_TIMED_STEPS = 6, 3, 4
 # 29a's clips x frames of 64x64: phase 12's MAGVIT2 batch, phase 9's Genie.
 DP_TOK_BATCH, DP_GENIE_BATCH = (4, 8, 64, 64, 3), (4, 16, 64, 64, 3)
 # 29b's copy of tokenize.yaml: at its 1e-3, and at 1e-4, the run diverges
-# within a few steps (loss 19.6 to 162 in 5 steps at 1e-4), and two
+# within a few steps (loss 19.6 to 162 in 5 steps at 1e-4; the JAX
+# package's diverges alike, tests/test_torch_yaml_divergence.py), and two
 # diverging runs part by more than PIX_TOL whatever the order of their sums.
 # The later steps are held to PIX_TOL; the first step, which no lr reaches,
 # is held tightly (DP_FIRST_STEP_TOL).
@@ -4044,7 +4327,8 @@ TP_GENIE_BATCH = (4, 16, 64, 64, 3)  # genie.yaml's batch
 TP_FLAGSHIP_BATCH = (2, 4, 8, 8, 3)
 TP_TURNS = 1  # rounds of (one process, TP, TP, one process) timed in 30a
 # 30c: `cli train genie` steps, its one checkpoint, and its lr (genie.yaml's
-# 1e-4 takes the f32 loss from 15.5 to 1117 in 3 steps; PERF.md).
+# 1e-4 takes the f32 loss from 15.5 to 1117 in 3 steps; the JAX package's
+# step diverges there too, tests/test_torch_yaml_divergence.py, PERF.md).
 TP_STEPS, TP_CKPT_AT, TP_CLI_LR = 3, 2, 1e-5
 # A TP step in f32 (TF32 off) against one process on the same weights,
 # batch and noise: the loss within `loss` relative, each gathered gradient
@@ -4113,9 +4397,11 @@ def _tp_compare(tp: dict, one: dict) -> dict:
     """A TP step's loss, metrics, gradients and parameters against one
     process's: relative errors, the largest first."""
     errs = _grad_rel_errs(tp["grads"], one["grads"])
+    metric_errs = sorted(((abs(v - one["metrics"][k]) / max(abs(one["metrics"][k]), 1e-6), k)
+                          for k, v in tp["metrics"].items()), reverse=True)
     return {"loss": abs(tp["metrics"]["loss"] / one["metrics"]["loss"] - 1),
-            "metrics": max(abs(v - one["metrics"][k]) / max(abs(one["metrics"][k]), 1e-6)
-                           for k, v in tp["metrics"].items()),
+            "metrics": metric_errs[0][0],
+            "worst_metrics": [f"{k} {e:.3g}" for e, k in metric_errs[:4]],
             "grads_together": errs[""], "grad": max(v for k, v in errs.items() if k),
             "worst": [k for k in errs if k][:3],
             "param": max((p - one["params"][n]).abs().max().item()
@@ -4126,6 +4412,22 @@ def _fingerprint(tensors: dict) -> dict:
     """Each tensor's float64 sum and largest |element|: what two ranks'
     copies are compared by."""
     return {n: (t.double().sum().item(), t.abs().max().item()) for n, t in tensors.items()}
+
+
+def _code_margin(genie, video: torch.Tensor) -> float:
+    """The smallest |value| whose sign is an LFQ code of `genie`'s frozen
+    tokenizer or latent action on `video` (f32, no gradient): a code
+    within rounding of 0 (LFQ_UNDECIDED) is decided by the order of the
+    sums, and a TP step and one process may then see other tokens."""
+    tok, la = genie.tokenizer, genie.latent_action
+    la.eval()
+    with torch.no_grad():
+        x = tok.encode(video)
+        (_, _, enc), _, _ = la.encode(video)
+        z = la.to_act(enc.reshape(*video.shape[:2], -1))
+        x, z = (q.proj_inp(v) if q.project else v for q, v in ((tok.quant, x), (la.quant, z)))
+    la.train()
+    return min(x.abs().min().item(), z.abs().min().item())
 
 
 def _tp_f32_case(label: str, cfg: dict, batch: tuple, seed: int, mesh, dev) -> dict:
@@ -4152,8 +4454,9 @@ def _tp_f32_case(label: str, cfg: dict, batch: tuple, seed: int, mesh, dev) -> d
                "shapes": _read_shapes(), "launches": _read_counts()}
         del tp
         if mesh.rank == 0:
-            out["errs"] = _tp_compare(got, _genie_step(whole.to(dev), Mesh(1), dev, video,
-                                                       seed + 1))
+            whole.to(dev)
+            out["code_margin"] = _code_margin(whole.model, video)
+            out["errs"] = _tp_compare(got, _genie_step(whole, Mesh(1), dev, video, seed + 1))
         del got, whole
         dist.barrier()
     torch.cuda.empty_cache()
@@ -4246,23 +4549,35 @@ def tp_rank_main(work: Path) -> int:
     dev = torch.device(spec["device"])
     assert init_distributed(backend="gloo", device=dev)
     mesh = make_mesh(1, 2)
-    out = {"f32": _tp_f32_case("tp f32", genie_train_config(), TP_GENIE_BATCH, SEED + 30,
+    # 30a's draw: at SEED + 30 the seeded init puts one of the frozen
+    # tokenizer's codes at |x| = 7.1e-7 (a token that the order of the sums
+    # decides), so 30a draws from SEED + 33, whose codes are all at least
+    # 1.5e-5 from 0; the phase asserts it.
+    out = {"f32": _tp_f32_case("tp f32", genie_train_config(), TP_GENIE_BATCH, SEED + 33,
                                mesh, dev)}
     out["bf16"] = _tp_bf16_turns(mesh, dev)
     out["flagship"] = _tp_f32_case("tp flagship", genie_tp_flagship_config(), TP_FLAGSHIP_BATCH,
                                    SEED + 32, mesh, dev)
     torch.cuda.empty_cache()
+    from open_genie_tpu_torch.data import video
+
     written, save = [], CheckpointWriter.save
+    videos, write_mp4 = [], video.write_mp4
 
     def spy_save(self, state, step=None, **kwargs):
         written.append((Path(self.dir).name, step))
         return save(self, state, step, **kwargs)
 
-    CheckpointWriter.save = spy_save
+    def spy_write(path, frames, *args, **kwargs):
+        videos.append((str(path), tuple(frames.shape)))
+        return write_mp4(path, frames, *args, **kwargs)
+
+    CheckpointWriter.save, video.write_mp4 = spy_save, spy_write
     t0 = time.perf_counter()
     with _Tf32Off():
         state = cli(["train", "genie", "--config", spec["cfg_tp"], "--device", dev.type])
-    out["cli"] = {"written": written, "step": state.step, "seconds": time.perf_counter() - t0,
+    out["cli"] = {"written": written, "videos": videos, "step": state.step,
+                  "seconds": time.perf_counter() - t0,
                   "split": sum(1 for p in state.module.parameters()
                                if getattr(p, "tp_split", None))}
     torch.save(out, work / f"rank{mesh.rank}.pt")
@@ -4282,9 +4597,9 @@ def phase_tp_two_ranks(dev, smi: str) -> dict:
     two), one f32 step held to one process. 30c: `cli train genie` on a
     genie.yaml copy with `trainer.n_model: 2` (f32, lr TP_CLI_LR, TP_STEPS
     steps, one checkpoint at TP_CKPT_AT, by rank 0 alone, in the
-    one-process layout);
-    the checkpoint resumed on one process gives the TP run's next step
-    within TP_TOL["loss"]."""
+    one-process layout; a validation at the last step, whose sample video
+    rank 0 alone writes); the checkpoint resumed on one process gives the
+    TP run's next step within TP_TOL["loss"]."""
     from open_genie_tpu_torch.cli import main as cli
     from open_genie_tpu_torch.models.configs import genie_tp_flagship_config, genie_train_config
     from open_genie_tpu_torch.train.loop import all_steps, load_checkpoint
@@ -4295,7 +4610,8 @@ def phase_tp_two_ranks(dev, smi: str) -> dict:
     try:
         tp_run, one_run = work / "tp", work / "one"
         common = dict(max_steps=TP_STEPS, precision="32", n_data=1,
-                      ckpt_every_n_steps=TP_CKPT_AT, save_last=False)
+                      ckpt_every_n_steps=TP_CKPT_AT, save_last=False,
+                      val_check_interval=TP_STEPS, limit_val_batches=1)
         lr = {"model": {"optimizer": {"init_args": {"lr": TP_CLI_LR}}}}
         cfg_tp = yaml_copy("genie.yaml", work, {**lr, **trainer_overrides(tp_run, n_model=2,
                                                                          **common)})
@@ -4335,9 +4651,14 @@ def phase_tp_two_ranks(dev, smi: str) -> dict:
                   f"off): loss {e['loss']:.3g} relative, metrics {e['metrics']:.3g}, the "
                   f"{len(a['grads'])} gathered gradients before the clip {e['grads_together']:.3g} "
                   f"of their norm together, {e['grad']:.3g} at most ({', '.join(e['worst'])}); "
+                  f"metrics {e['worst_metrics']}; the LFQ codes' smallest |value| before "
+                  f"their signs {ranks[0][key]['code_margin']:.3g}; "
                   f"max |d param| after the step {e['param']:.3g}; {len(ranks[0][key]['split'])} "
                   f"split parameters a rank; the ranks' metrics and gradients bit-equal; "
                   f"tolerances {TP_TOL}")
+            assert ranks[0][key]["code_margin"] > LFQ_UNDECIDED, (
+                f"[{label}] an LFQ code of the draw is decided by rounding: the comparison "
+                "has no meaning on it")
             assert e["loss"] <= TP_TOL["loss"], f"[{label}] loss off by {e['loss']:.3g}"
             assert e["grad"] <= TP_TOL["grad"], f"[{label}] {e['worst'][0]} off by {e['grad']:.3g}"
             assert e["param"] <= 2.1 * TP_LR, f"[{label}] parameters off by {e['param']:.3g}"
@@ -4378,10 +4699,19 @@ def phase_tp_two_ranks(dev, smi: str) -> dict:
         cli0, cli1 = (r["cli"] for r in ranks)
         assert cli1["written"] == [], f"rank 1 wrote {cli1['written']}"
         assert cli0["written"] == [("ckpt", TP_CKPT_AT)], cli0["written"]
+        # The sample video of the validation at the last step: rank 0 alone
+        # rolls out on the gathered weights and writes it.
+        mp4 = tp_run / "logs" / f"sample_step{TP_STEPS}.mp4"
+        assert cli1["videos"] == [], f"rank 1 wrote {cli1['videos']}"
+        assert [p for p, _ in cli0["videos"]] == [str(mp4)], cli0["videos"]
+        assert mp4.is_file() and mp4.stat().st_size > 0, f"no sample video at {mp4}"
+        assert not any("[eval-hook]" in log for log in logs), "the sample video failed"
         assert all_steps(tp_run / "ckpt") == [TP_CKPT_AT]
         assert "[step" not in logs[1], "rank 1 printed step lines"
         records = read_jsonl(tp_run / "logs")
         _finite_records("tp trainer", records)
+        assert [r["step"] for r in records if any(k.startswith("val_") for k in r)] == [
+            TP_STEPS], "30c validates at its last step only"
         tp_losses = {r["step"]: r["loss"] for r in records if "loss" in r}
         assert sorted(tp_losses) == list(range(1, TP_STEPS + 1)), sorted(tp_losses)
         ckpt, _ = load_checkpoint(str(tp_run / "ckpt"))
@@ -4403,7 +4733,9 @@ def phase_tp_two_ranks(dev, smi: str) -> dict:
         print(f"[tp trainer] {smi}: cli train genie on 2 model ranks (f32): losses "
               f"{[round(tp_losses[s], 6) for s in sorted(tp_losses)]}, "
               f"{cli0['split']} split parameters a rank, one checkpoint at step {TP_CKPT_AT} "
-              f"by rank 0 in the one-process layout ({len(ckpt['params'])} tensors); resumed "
+              f"by rank 0 in the one-process layout ({len(ckpt['params'])} tensors); the "
+              f"sample video of step {TP_STEPS} by rank 0 alone, frames "
+              f"{cli0['videos'][0][1]}, {mp4.stat().st_size} bytes of mp4; resumed "
               f"on one process, step {TP_STEPS}'s loss {one_losses[TP_STEPS]:.6f} against the "
               f"TP run's {tp_losses[TP_STEPS]:.6f}: {l_err:.3g} relative; TP steps after the "
               f"first {[round(t, 1) for t in tp_ms]} ms; K1 f32 at the ranks' shapes within "
@@ -4411,6 +4743,7 @@ def phase_tp_two_ranks(dev, smi: str) -> dict:
               f"{seconds:.1f} s with their start-up")
         assert l_err <= TP_TOL["loss"], f"the resumed step 3 is off by {l_err:.3g}"
         return {"launches": bf[0]["launches"], "shapes": bf[0]["shapes"],
+                "sample_video_frames": cli0["videos"][0][1],
                 "rank_ms": ms_tp, "one_process_ms": ms_one,
                 "reduced_mib": bf[0]["reduced_bytes"] / mib,
                 "gathered_mib": bf[0]["gathered_bytes"] / mib,
@@ -4479,6 +4812,14 @@ def main() -> int:
         eval_tok = phase_eval_tokenizer(dev, device["smi"], work)
         gen, genie_cfg = phase_generate_play(dev, device["smi"], work, train)
         evals = phase_eval_genie_dynamics(dev, device["smi"], work, genie_cfg)
+        # Phases 31 and 33 read phase 22's checkpoint.
+        trainer["r05b_genie"] = phase_trainer_r05b_genie(dev, device["smi"], work)
+        for name in ("r05b_genie", "r05b_genie_resumed", "tokenizer", "dynamics"):
+            shutil.rmtree(work / name, ignore_errors=True)
+        trainer["r05"] = phase_trainer_r05b(dev, device["smi"], work, "r05_tokenizer.yaml",
+                                            R05_OVERRIDES, "r05")
+        shutil.rmtree(work / "r05", ignore_errors=True)
+        trainer["import"] = phase_import_ckpt(dev, device["smi"], work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     vdisc = phase_video_disc(dev, device["smi"], tok_times["ms"])
@@ -4503,7 +4844,10 @@ def main() -> int:
     kernels = [k1, k2, k3, k4, k5, k6]
     for k in kernels:
         name = k["name"]
-        # The CLI's paths of phases 23 to 26 (one gvid-fed train step, one
+        # Phases 31 to 33 first: one step of `cli train genie` on
+        # r05b_genie.yaml, of `cli train tokenizer` on r05_tokenizer.yaml and
+        # of the run resumed from `cli import-ckpt`. Then the CLI's paths of
+        # phases 23 to 26 (one gvid-fed train step, one
         # evaluated batch, one `generate` call, one `play` step, one `eval
         # genie` and one `eval dynamics` call), then the trainer's: one step
         # of `cli train tokenizer` on tokenize.yaml, one clip of `cli
@@ -4513,7 +4857,10 @@ def main() -> int:
         # tokenizer` on two ranks, and rank 0's half of the split K5/K6.
         # Before them phase 30's: one bf16 Genie step of rank 0 of two
         # model ranks.
-        by_path = {"tp_train_step": tp["launches"][name],
+        by_path = {"trainer_r05b_genie": trainer["r05b_genie"]["launches"][name],
+                   "trainer_r05": trainer["r05"]["launches"][name],
+                   "import_resume": trainer["import"]["launches"][name],
+                   "tp_train_step": tp["launches"][name],
                    "dp_tokenizer_train": dp["dp_tokenizer_train"]["launches"][name],
                    "dp_train_step": dp["dp_train_step"]["launches"][name],
                    "dp_trainer_rank0": dp["dp_trainer"]["launches"][name],
@@ -4529,9 +4876,9 @@ def main() -> int:
                    **{path: stage[path]["launches"][name] for path in STAGE_PATHS},
                    "serve": serve["launches"][name], "tokenizer_train": tok_train[name],
                    "train_step": train.get(name, 0), "rollout": rollout.get(name, 0)}
-        # The newest path that runs the kernel, in the order above: the
-        # tensor-parallel Genie step for K1 to K4, the distributed MAGVIT2
-        # step for K5 and K6.
+        # The newest path that runs the kernel, in the order above: phase
+        # 31's r05b Genie step for K1 to K4, the distributed MAGVIT2 step
+        # for K5 and K6.
         k["launches"] = next((c for c in by_path.values() if c > 0), 0)
         k["launches_by_path"] = by_path
         k["serve_launches"] = {"per_reset": serve["per_reset"][name],

@@ -1,7 +1,8 @@
 """Command-line entry points of the port (twin of `open_genie_tpu.cli`):
-`train`, `tokenize-data`, `generate`, `play`, `eval` and `make-data`, with
-the JAX package's flags, defaults and printed lines, plus `--device` on
-every command that runs a model.
+`train`, `tokenize-data`, `generate`, `play`, `eval`, `make-data` and
+`import-ckpt` (the JAX package's `tools/import_reference_ckpt.py`), with the
+JAX package's flags, defaults and printed lines, plus `--device` on every
+command that runs a model.
 
 Usage:
   python -m open_genie_tpu_torch.cli train tokenizer --config configs/tokenize.yaml
@@ -15,10 +16,13 @@ Usage:
   python -m open_genie_tpu_torch.cli eval tokenizer --config configs/tokenize.yaml \
       --ckpt checkpoints/tokenizer --ema
   python -m open_genie_tpu_torch.cli make-data --root data --num-videos 64
+  python -m open_genie_tpu_torch.cli import-ckpt --ckpt last.ckpt \
+      --config configs/tokenize.yaml --out checkpoints/imported
 
-A model runs on the card unless `--device cpu` is given; `make-data` runs
-on the host. `train` and `tokenize-data` run on several devices when
-launched once per rank with the JAX package's variables: `OGT_COORDINATOR`
+A model runs on the card unless `--device cpu` is given; `make-data` and
+`import-ckpt` (a file conversion) run on the host. `train` and
+`tokenize-data` run on several devices when launched once per rank with
+the JAX package's variables: `OGT_COORDINATOR`
 (`host:port` of rank 0), `OGT_NUM_PROCESSES` and `OGT_PROCESS_ID`, over
 NCCL on the card and gloo on the CPU; rank `r` takes
 `cuda:{r % device_count}`. `train` is then data-parallel over the ranks
@@ -355,6 +359,44 @@ def _eval_dynamics(args):
     return _print_report(report)
 
 
+def _import_ckpt(args):
+    """A reference VideoTokenizer checkpoint as a step of the port's trainer
+    layout: the tokenizer's weights imported, the rest of the train module
+    (discriminator, VGG) from `trainer.seed`, the optimizer fresh with the
+    VGG frozen as `train tokenizer` builds it, so that `train tokenizer
+    --resume` restores and continues. Runs on the CPU."""
+    from open_genie_tpu_torch.train.config import load_config
+    from open_genie_tpu_torch.train.loop import TrainState, make_optimizer, save_checkpoint
+    from open_genie_tpu_torch.train.losses import frozen_param_mask
+    from open_genie_tpu_torch.train.trainer import (
+        _opt_kwargs,
+        build_tokenizer_module,
+        init_module,
+    )
+    from open_genie_tpu_torch.utils.torch_import import (
+        convert_reference_state_dict,
+        load_reference_state_dict,
+    )
+
+    cfg = load_config(args.config, kind="tokenizer")
+    module = init_module(build_tokenizer_module(cfg.model), cfg.trainer.seed, "cpu")
+    params, skipped = convert_reference_state_dict(load_reference_state_dict(args.ckpt),
+                                                   module.model)
+    module.model.load_state_dict(params)
+    print(f"# imported {len(params)} param tensors into the model subtree")
+    if skipped:
+        print(f"# skipped {len(skipped)} reference keys (buffers/loss modules), "
+              f"e.g. {skipped[:4]}")
+    frozen = ("perc_crit",) if cfg.model.perc_loss_weight > 0 else ()
+    optimizer = make_optimizer(module, **_opt_kwargs(cfg.model.optimizer),
+                               frozen_mask=frozen_param_mask(module, frozen) if frozen else None)
+    # No generator state: the resumed run draws from its own, seeded as a
+    # fresh run's.
+    save_checkpoint(args.out, TrainState(module, optimizer, step=args.step), step=args.step)
+    print(f"# wrote checkpoint step {args.step} to {args.out}")
+    return 0
+
+
 def _make_data(args):
     from open_genie_tpu_torch.data.video import SyntheticVideo, write_mp4
 
@@ -559,6 +601,20 @@ def build_parser() -> argparse.ArgumentParser:
     pk.add_argument("--limit", type=int, default=None)
     device_flag(pk)
     pk.set_defaults(fn=_tokenize_data)
+
+    pi = sub.add_parser(
+        "import-ckpt",
+        help="convert a reference (open-genie, PyTorch Lightning) VideoTokenizer "
+        "checkpoint into a step of the port's trainer layout (runs on the CPU: a "
+        "file conversion)")
+    pi.add_argument("--ckpt", required=True, help="reference .ckpt/.pt/.npz")
+    pi.add_argument("--config", required=True,
+                    help="tokenizer YAML config of the blueprint the checkpoint was "
+                    "trained with")
+    pi.add_argument("--out", required=True, help="output checkpoint dir")
+    pi.add_argument("--step", type=int, default=0,
+                    help="step number recorded in the imported checkpoint")
+    pi.set_defaults(fn=_import_ckpt)
 
     pd = sub.add_parser("make-data", help="generate an mp4 dataset")
     pd.add_argument("--root", required=True)

@@ -229,6 +229,15 @@ def gather_state(state, mesh: Mesh) -> Tuple[Dict[str, torch.Tensor], Dict[str, 
                       lambda t, split: gather_split(t, split, mesh.model_group))
 
 
+def gather_params(module: nn.Module, mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """The module's `state_dict` in the one-process layout: each split
+    parameter all-gathered over the model group (the sample video's whole
+    weights). Every rank of the mesh must call it."""
+    splits = {n: split_of(p) for n, p in module.named_parameters()}
+    return {n: gather_split(t.detach(), splits.get(n), mesh.model_group)
+            for n, t in module.state_dict().items()}
+
+
 def local_state(state, params: Mapping[str, torch.Tensor], train_state: Mapping[str, Any],
                 mesh: Mesh) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
     """This rank's slices of a one-process `(params, train_state)`, for

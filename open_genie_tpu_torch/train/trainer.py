@@ -41,7 +41,7 @@ from open_genie_tpu_torch.parallel.mesh import (
     rank_seed,
     replicated,
 )
-from open_genie_tpu_torch.parallel.tensor import gather_state, shard_module
+from open_genie_tpu_torch.parallel.tensor import gather_params, gather_state, shard_module
 from open_genie_tpu_torch.train.config import (
     DynamicsModelConfig,
     ExperimentConfig,
@@ -489,11 +489,32 @@ def _make_val_fn(module: nn.Module, compute_dtype, seed: int, mesh: Mesh) -> Cal
 
 
 def make_eval_video_hook(module: GenieTrainModule, tcfg, size: int = 64,
-                         num_frames: int = 8) -> Callable:
+                         num_frames: int = 8, mesh: Mesh = Mesh(1),
+                         genie_kwargs: Optional[dict] = None) -> Callable:
     """Sample-video hook for Genie training: roll out a short
     action-conditioned video from a noise prompt and write it next to the
-    logs as an mp4 (only with OpenCV). A failure is printed, never raised:
-    the hook must not kill training."""
+    logs as an mp4 (only with OpenCV). Every rank of `mesh` calls it; rank
+    0 alone rolls out and writes. Under tensor parallelism the rollout
+    runs on whole weights: every rank joins the gather of its slices
+    (`parallel.tensor.gather_params`), and rank 0 loads them into a
+    one-process model built from `genie_kwargs` (under a forked RNG, so
+    that rank 0's dropout stream stays its model ranks'). A failure is
+    printed, never raised: the hook must not kill training."""
+    whole: Dict[str, nn.Module] = {}
+
+    def rollout_module(state: TrainState) -> Optional[nn.Module]:
+        """The module to roll out on rank 0 (None on the other ranks)."""
+        if mesh.n_model == 1:
+            return module if mesh.rank == 0 else None
+        params = gather_params(state.module, mesh)
+        if mesh.rank != 0:
+            return None
+        if "module" not in whole:
+            with torch.random.fork_rng(devices=[]):
+                whole["module"] = GenieTrainModule(genie_kwargs)
+            whole["module"].to(next(module.parameters()).device)
+        whole["module"].load_state_dict(params)
+        return whole["module"]
 
     def hook(state: TrainState, step: int) -> None:
         from open_genie_tpu_torch.data.video import HAS_CV2, write_mp4
@@ -501,17 +522,20 @@ def make_eval_video_hook(module: GenieTrainModule, tcfg, size: int = 64,
         if not HAS_CV2:
             return
         try:
-            device = next(module.parameters()).device
+            target = rollout_module(state)
+            if target is None:
+                return
+            device = next(target.parameters()).device
             g = torch.Generator(device).manual_seed(step)
             prompt = torch.rand(1, 1, size, size, 3, generator=g, device=device)
             actions = torch.randint(0, 2, (1, num_frames + 1), generator=g, device=device)
-            module.eval()
+            target.eval()
             try:
                 with torch.no_grad():
-                    video = module.generate(prompt, actions, num_frames=num_frames,
+                    video = target.generate(prompt, actions, num_frames=num_frames,
                                             steps_per_frame=8, generator=g)
             finally:
-                module.train()
+                target.train()
             os.makedirs(tcfg.log_dir, exist_ok=True)
             write_mp4(os.path.join(tcfg.log_dir, f"sample_step{step}.mp4"),
                       video[0].clamp(0, 1).float().cpu().numpy())
@@ -548,11 +572,6 @@ def _fit(cfg: ExperimentConfig, module: nn.Module, dataset, device, resume: bool
         val_loader = build_loader(cfg, val_dataset, device, split="val", mesh=mesh)
         val_fn = _make_val_fn(module, compute_dtype, tcfg.seed + 1, mesh)
     else:
-        eval_hook = None
-    if eval_hook is not None and mesh.n_model > 1:
-        # The sample video is a rollout, which runs on whole weights only.
-        if mesh.rank == 0:
-            print("# sample videos are off under tensor parallelism (no TP rollout)")
         eval_hook = None
     if mesh.rank == 0:
         save_config_snapshot(tcfg.ckpt_dir, cfg)
@@ -611,7 +630,8 @@ def train_genie(cfg: ExperimentConfig, resume: bool = False, device="cuda") -> T
         _load_subtree_into_genie(module, mcfg.dynamics_ckpt, "dynamics")
     if mcfg.action_ckpt:
         _load_subtree_into_genie(module, mcfg.action_ckpt, "latent_action")
-    hook = make_eval_video_hook(module, tcfg, size=cfg.data.height, num_frames=8)
+    hook = make_eval_video_hook(module, tcfg, size=cfg.data.height, num_frames=8, mesh=mesh,
+                                genie_kwargs=genie_model_kwargs(mcfg))
     return _fit(cfg, module, dataset, device, resume, ("model/tokenizer",),
                 val_dataset=_val_dataset(cfg, tcfg), eval_hook=hook, mesh=mesh)
 
@@ -672,9 +692,10 @@ def _run_loop(
 
     On a `mesh` of several ranks every rank steps, validates and takes
     part in each save (the ranks' generator states are gathered into it,
-    and a split state into the one-process layout), but only rank 0 logs,
-    purges, writes the checkpoint (as orbax's primary host does) and runs
-    `eval_hook`; a barrier follows each save."""
+    and a split state into the one-process layout) and calls `eval_hook`
+    (which gathers a split model's weights), but only rank 0 logs, purges,
+    writes the checkpoint (as orbax's primary host does) and writes the
+    sample video; a barrier follows each save."""
     primary = mesh.rank == 0
     if len(loader) == 0:
         raise ValueError(
@@ -757,7 +778,7 @@ def _run_loop(
                             best_writer = CheckpointWriter(
                                 os.path.join(tcfg.ckpt_dir, "best"), max_to_keep=1)
                         save(best_writer, "best")
-                    if eval_hook is not None and primary:
+                    if eval_hook is not None:  # every rank: a split model gathers
                         eval_hook(state, step)
                     t0 = time.time()
                 if step % tcfg.ckpt_every_n_steps == 0 or (

@@ -1,6 +1,7 @@
 """Small shared helpers (copies of `open_genie_tpu.utils`, jax-free)."""
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Sequence, Tuple, TypeVar, Union
 
 import torch
@@ -57,16 +58,37 @@ def last_out_channels(blueprint: Blueprint) -> Optional[int]:
     return out
 
 
+# flax's `lecun_normal` draws a normal truncated to two standard deviations
+# and divides by this factor (the truncated unit normal's std) so that the
+# std stays `fan_in ** -0.5` (`jax.nn.initializers.variance_scaling`).
+_TRUNC_STD = 0.87962566103423978
+
+
+def _truncated_normal(shape, generator: torch.Generator) -> torch.Tensor:
+    """Unit normal truncated to [-2, 2], drawn by inverting the CDF of one
+    uniform draw from `generator` (torch's `trunc_normal_` method, with the
+    generator passed explicitly)."""
+    lo, hi = ((1.0 + math.erf(b / math.sqrt(2.0))) / 2.0 for b in (-2.0, 2.0))
+    u = torch.rand(shape, generator=generator) * (2.0 * hi - 2.0 * lo) + (2.0 * lo - 1.0)
+    return (torch.erfinv(u) * math.sqrt(2.0)).clamp_(-2.0, 2.0)
+
+
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Seeded random weights, drawn from `generator` in a fixed order.
+    """Seeded random weights with flax's default initializers, drawn from
+    `generator` in a fixed order.
 
-    Dense and conv weights are normal with std `fan_in ** -0.5` (the JAX
-    package's lecun-normal, untruncated), embeddings standard normal, norm
-    scales one, biases zero. A Linear with a `const_init` attribute
-    `(weight, bias)` is filled with those constants and draws nothing
-    (`AdaptiveGroupNorm`'s heads). Used where no trained checkpoint exists
-    (the chip smoke run); parity tests load JAX weights through `bridge.py`.
+    Dense and conv weights (3-D, 2-D and transposed) are flax's
+    `lecun_normal`: a normal truncated to two standard deviations and
+    rescaled so that its std is `fan_in ** -0.5`, as flax draws it.
+    Embeddings are flax's `nn.Embed` default, an untruncated normal with
+    std `embedding_dim ** -0.5`. Norm scales are one, biases zero. A Linear
+    with a `const_init` attribute `(weight, bias)` is filled with those
+    constants and draws nothing (`AdaptiveGroupNorm`'s heads, flax's
+    `zeros`/`ones` initializers there). The draw itself differs from flax's
+    (threefry keys cannot be replayed); the distribution of every leaf does
+    not (`tests/test_torch_init.py`). Used wherever no checkpoint is
+    loaded; parity tests load JAX weights through `bridge.py`.
     """
     for mod in module.modules():
         const = getattr(mod, "const_init", None)
@@ -78,9 +100,10 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
             w = mod.weight  # a transposed conv's is (I, O, *k): fan-in I * k
             fan_in = w.shape[0] * w[0, 0].numel() if isinstance(
                 mod, nn.ConvTranspose3d) else w[0].numel()
-            w.copy_(torch.randn(w.shape, generator=generator) * fan_in ** -0.5)
+            w.copy_(_truncated_normal(w.shape, generator) * (fan_in ** -0.5 / _TRUNC_STD))
         elif isinstance(mod, nn.Embedding):
-            mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator))
+            w = mod.weight
+            w.copy_(torch.randn(w.shape, generator=generator) * w.shape[1] ** -0.5)
         elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):
             nn.init.ones_(mod.weight)
         else:

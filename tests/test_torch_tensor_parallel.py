@@ -470,6 +470,32 @@ def test_tp_checkpoint_resumes_on_one_process_and_back(runs):
                  _checkpoint(work, "one", TRAIN_STEPS)[0], "one process resumed under TP")
 
 
+def test_tp_sample_video_is_one_process_hook_on_the_gathered_weights(runs, monkeypatch):
+    """Under `n_model: 2` the Genie trainer's sample video runs: rank 0
+    writes it from whole weights (every rank joins the gather), rank 1
+    writes nothing, and its frames equal one process's hook on the same
+    weights (the step's checkpoint, saved after the hook) and step seed."""
+    from open_genie_tpu_torch.data import video
+    from open_genie_tpu_torch.train.config import load_config
+    from open_genie_tpu_torch.train.losses import GenieTrainModule
+    from open_genie_tpu_torch.train.trainer import genie_model_kwargs, make_eval_video_hook
+
+    *_, (trainer, logs), work = runs
+    assert trainer[1]["videos"] == [] and "[eval-hook]" not in logs[0] + logs[1]
+    got = {(d, f): v for d, f, v in trainer[0]["videos"]}
+    name = f"sample_step{TRAIN_STEPS}.mp4"
+    assert ("tp_logs", name) in got and (work / "tp_logs" / name).is_file()
+    cfg = load_config(str(work / "tp.yaml"), "genie")
+    module = GenieTrainModule(genie_model_kwargs(cfg.model))
+    module.load_state_dict(_checkpoint(work, "tp", TRAIN_STEPS)[0])
+    frames = []
+    monkeypatch.setattr(video, "write_mp4", lambda path, v: frames.append(v))
+    make_eval_video_hook(module, cfg.trainer, size=cfg.data.height, num_frames=8)(
+        None, TRAIN_STEPS)
+    assert len(frames) == 1 and frames[0].shape == got[("tp_logs", name)].shape
+    np.testing.assert_array_equal(frames[0], got[("tp_logs", name)])
+
+
 def test_genie_tp_flagship_config_is_the_dry_runs():
     import __graft_entry__
 

@@ -21,7 +21,8 @@ group, each rank on its block of the vocabulary.
 
 `trainer`: `cli train genie` on `tp.yaml` (`trainer.n_model: 2`), and on
 `resume.yaml` resumed from the one-process checkpoint the test process
-put in its directory, recording the checkpoints each rank wrote; then
+put in its directory, recording the checkpoints each rank wrote and the
+frames of each sample video it wrote (before the mp4 encode); then
 `cli train tokenizer`, `action` and `dynamics` on `<stage>_2.yaml`.
 
 Everything goes to `<mode>_rank<r>.pt`.
@@ -119,22 +120,30 @@ def run_vocab(spec, mesh):
 
 def run_trainer(work, mesh):
     from open_genie_tpu_torch import cli
+    from open_genie_tpu_torch.data import video
     from open_genie_tpu_torch.train.loop import CheckpointWriter
 
     written, save = [], CheckpointWriter.save
+    videos, write_mp4 = [], video.write_mp4
 
     def spy_save(self, state, step=None, **kwargs):
         written.append((os.path.basename(self.dir), step))
         return save(self, state, step, **kwargs)
 
+    def spy_write(path, frames, *args, **kwargs):
+        videos.append((os.path.basename(os.path.dirname(path)), os.path.basename(path),
+                       frames.copy()))
+        return write_mp4(path, frames, *args, **kwargs)
+
     CheckpointWriter.save = spy_save
+    video.write_mp4 = spy_write
     out = {}
     for name, extra in (("tp", []), ("resume", ["--resume"])):
         state = cli.main(["train", "genie", "--config", os.path.join(work, f"{name}.yaml"),
                           "--device", "cpu", *extra])
         out[name] = {"step": state.step, "split": sorted(
             n for n, p in state.module.named_parameters() if getattr(p, "tp_split", None))}
-    out["written"] = written
+    out["written"], out["videos"] = written, videos
     for what in ("tokenizer", "action", "dynamics"):
         state = cli.main(["train", what, "--config", os.path.join(work, f"{what}_2.yaml"),
                           "--device", "cpu"])
