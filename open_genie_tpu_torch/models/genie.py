@@ -31,6 +31,7 @@ from open_genie_tpu_torch.models.dynamics import (
     maskgit_commit,
 )
 from open_genie_tpu_torch.models.tokenizer import VideoTokenizer
+from open_genie_tpu_torch.utils.debug import span
 
 
 class Genie(nn.Module):
@@ -246,17 +247,20 @@ class Genie(nn.Module):
         mask = torch.ones(b, h * w, dtype=torch.bool, device=act_t.device)
         code = torch.zeros(b, h * w, dtype=dtype, device=act_t.device)
         for s, num_tokens in enumerate(schedule):
-            frame = code.masked_fill(mask, 0).view(b, h, w)
-            logits, _ = self.dynamics.decode_frame(
-                frame, act_t, cache, tgt, commit=False
-            )
-            mask, code = maskgit_commit(
-                logits.reshape(b, h * w, -1), mask, code, int(num_tokens),
-                temp, top_k=top_k, generator=generator,
-                gumbel=None if gumbel is None else gumbel[s],
-            )
+            with span("dynamics.refine"):
+                frame = code.masked_fill(mask, 0).view(b, h, w)
+                logits, _ = self.dynamics.decode_frame(
+                    frame, act_t, cache, tgt, commit=False
+                )
+            with span("maskgit.sample"):
+                mask, code = maskgit_commit(
+                    logits.reshape(b, h * w, -1), mask, code, int(num_tokens),
+                    temp, top_k=top_k, generator=generator,
+                    gumbel=None if gumbel is None else gumbel[s],
+                )
         frame = code.view(b, h, w)
-        _, cache = self.dynamics.decode_frame(frame, act_t, cache, tgt)
+        with span("dynamics.commit"):
+            _, cache = self.dynamics.decode_frame(frame, act_t, cache, tgt)
         return frame, cache
 
     # ------------------------------------------------------------------ #
@@ -323,7 +327,8 @@ class Genie(nn.Module):
     def decode_stream_frame(self, idxs: torch.Tensor, dcache: list, pos: int):
         """Stream-decode one token frame to pixels: `(pixels, dcache)`,
         exact against `decode_window` (`VideoTokenizer.decode_stream`)."""
-        return self.tokenizer.decode_stream(idxs, dcache, pos)
+        with span("tokenizer.decode_stream"):
+            return self.tokenizer.decode_stream(idxs, dcache, pos)
 
     def _check_actions(self, actions: torch.Tensor, total: int) -> torch.Tensor:
         """Reject ids outside `[0, act_vocab)` (the embedding has no row for

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from open_genie_tpu_torch.models.genie import Genie
+from open_genie_tpu_torch.utils.debug import span
 
 # Re-seeding at a rebase: the n-th rebase of a session of seed s draws from
 # a generator seeded s + n * _REBASE_SEED_STRIDE.
@@ -118,14 +119,21 @@ class InteractiveSession:
     def step(self, action, gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Advance one frame with `action` (an int or `(B,)` ids); returns
         the new frame's pixels `(B, H', W', C)` on the host."""
-        return self.step_nosync(action, gumbel).cpu()
+        with span("session.step"):
+            pix = self._advance(action, gumbel)
+            with span("session.to_host"):
+                return pix.cpu()
 
-    @torch.inference_mode()
     def step_nosync(self, action, gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
         """`step` without the copy to the host: returns the frame on the
         session's device without waiting for it, so a caller may chain
         steps and sync once. `gumbel` `(steps, B, H'*W', V)` replaces the
         step's draws from the session's generator."""
+        with span("session.step"):
+            return self._advance(action, gumbel)
+
+    @torch.inference_mode()
+    def _advance(self, action, gumbel: Optional[torch.Tensor]) -> torch.Tensor:
         assert self._buf is not None, "call reset() first"
         if self._t - self._t0 >= self.max_frames:
             self._renew()
@@ -165,11 +173,12 @@ class InteractiveSession:
         at 0, the action history trimmed with them, and the generator
         re-seeded."""
         keep = self._keep
-        toks = self._buf[:, self._t - keep: self._t]
-        acts = torch.stack(self._acts[-keep:], dim=1)
-        self._buf, self._cache = self.genie.session_rebase(toks, acts, self.max_frames)
-        if self.stream:
-            self._stream_prefill(self._buf, keep)
+        with span("session.rebase"):
+            toks = self._buf[:, self._t - keep: self._t]
+            acts = torch.stack(self._acts[-keep:], dim=1)
+            self._buf, self._cache = self.genie.session_rebase(toks, acts, self.max_frames)
+            if self.stream:
+                self._stream_prefill(self._buf, keep)
         self._acts = self._acts[-keep:]
         self._t0 = self._t = keep
         self._rebases += 1

@@ -40,6 +40,7 @@ from torch.func import functional_call
 from open_genie_tpu_torch.parallel import collectives
 from open_genie_tpu_torch.parallel.mesh import Mesh
 from open_genie_tpu_torch.parallel.tensor import local_state, split_of
+from open_genie_tpu_torch.utils.debug import span
 
 Schedule = Union[float, Callable[[int], float]]
 
@@ -272,9 +273,11 @@ class _LossAndBackward(nn.Module):
         self.group = group
 
     def forward(self, batch, kwargs):
-        loss, metrics = self.module(batch, **kwargs)
-        loss = loss.float()
-        collectives.backward(loss, self.group)
+        with span("train.forward"):
+            loss, metrics = self.module(batch, **kwargs)
+            loss = loss.float()
+        with span("train.backward"):
+            collectives.backward(loss, self.group)
         return loss.detach(), metrics
 
 
@@ -343,8 +346,9 @@ def make_train_step(
             loss, metrics = functional_call(
                 run, params, (_cast_batch(batch, compute_dtype), kwargs)
             )
-        grad_norm = optimizer.step(group, model_group)
-        optimizer.zero_grad()
+        with span("train.optimizer"):
+            grad_norm = optimizer.step(group, model_group)
+            optimizer.zero_grad()
         state.step += 1
         out = {k: v.detach() if isinstance(v, torch.Tensor) else torch.tensor(v)
                for k, v in metrics.items()}

@@ -17,6 +17,7 @@ profiler window follow the JAX package's loop (`_run_loop`).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import shutil
@@ -68,7 +69,7 @@ from open_genie_tpu_torch.train.losses import (
     frozen_param_mask,
 )
 from open_genie_tpu_torch.train.metrics import MetricLogger
-from open_genie_tpu_torch.utils import init_weights
+from open_genie_tpu_torch.utils import debug, init_weights
 
 def resolve_device(device, what: str = "training") -> torch.device:
     """`device` as a `torch.device`; a CUDA device without CUDA raises (no
@@ -748,11 +749,13 @@ def _run_loop(
                 # >= not ==: a resume past profile_start_step still traces
                 # the next prof_n steps.
                 if prof_n and profiler is None and prof_start <= step < prof_start + prof_n:
-                    profiler = _start_profiler(tcfg.log_dir, device)
+                    profiler = contextlib.ExitStack()
+                    profiler.enter_context(
+                        debug.profile_trace(os.path.join(tcfg.log_dir, "profile")))
                 metrics = step_fn(batch)
                 step += 1
                 if profiler is not None and step >= prof_start + prof_n:
-                    _stop_profiler(profiler, device)
+                    profiler.close()
                     profiler, prof_n = None, 0
                 if primary and step % tcfg.log_every_n_steps == 0:
                     values = {k: float(v) for k, v in metrics.items()}
@@ -790,31 +793,13 @@ def _run_loop(
                     break
     finally:
         if profiler is not None:
-            _stop_profiler(profiler, device)
+            profiler.close()
         ckpt_writer.close()
         if best_writer is not None:
             best_writer.close()
         if logger is not None:
             logger.close()
     return state
-
-
-def _start_profiler(log_dir: str, device):
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
-
-    activities = [ProfilerActivity.CPU]
-    if torch.device(device).type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    profiler = profile(activities=activities,
-                       on_trace_ready=tensorboard_trace_handler(os.path.join(log_dir, "profile")))
-    profiler.start()
-    return profiler
-
-
-def _stop_profiler(profiler, device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
-    profiler.stop()
 
 
 def _run_validation(val_fn, val_loader, limit: Optional[int], step: int, device
