@@ -22,11 +22,21 @@ Phases, in order (any failure raises and the exit code is non-zero):
      and edges (`LFQ_HEAD_CASES`), two calls bit-identical; both times at the
      paths' two calls as CUDA graphs, the eager call and an empty kernel's
      launch beside;
+  4b. kernel K7 (the MaskGIT commit after the noise draw) against its plain
+     twin at `MASKGIT_CASES` (every shape a path of this script or the
+     benchmark's session runs it at, a V that no split divides, both noise
+     kinds, temperatures, top_k, HW past one block), two calls
+     bit-identical; the kernel pair, the plain twin and the uniform draw
+     timed at `MASKGIT_PATH_SHAPES` beside the bound. Every later phase
+     counts K7's launches with the other kernels' (`_counters`), and the
+     last one holds K7 to its twin at any shape a phase ran that 4b did not
+     (`phase_maskgit_seen`);
   5. the compact rollout model on the card against the same model on the
-     CPU (plain twins there), same weights and Gumbel noise, f32;
+     CPU (plain twins there), same weights and Gumbel noise, f32 (K7 twice a
+     refinement);
   6. the full-width rollout (`genie_rollout_config()`, bf16, 64x64 prompt,
      4 frames at 25 MaskGIT steps): output checks, the kernels' launch
-     counts on that run (every K1 on the tensor cores, at the shapes that
+     counts on that run (K7 twice a refinement at (1, 256, 2^10)) (every K1 on the tensor cores, at the shapes that
      phase 3 checked), determinism, and
      the time per generated frame;
   7. kernels K3 and K4 (flash-attention backward) against the plain
@@ -76,7 +86,8 @@ Phases, in order (any failure raises and the exit code is non-zero):
  15. the full-width session (`genie_serve_config()`, bf16, a (1, 4, 64, 64,
      3) prompt, 8 MaskGIT steps a frame, a horizon of SERVE_STEPS + 4): the
      kernels' launches per reset (K1 at (8, 64, 64), K2 once at (64, 512,
-     18)), per step and at a rebase; the tokens against `rollout_tokens`
+     18)), per step and at a rebase (K7 twice a refinement at (1, 64, 2^18));
+     the tokens against `rollout_tokens`
      with a generator of the same seed; each decoder layer streamed over
      the batch decode's own input to it, within `bf16_excess` (and in f32
      within the JAX package's stream pin); the streamed frames' distance
@@ -238,6 +249,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -389,6 +401,46 @@ LFQ_HEAD_CASES = [(n, c, d, 0) for n, c, d in LFQ_HEAD_PATH_SHAPES] + [
     (256, 64, 10, 0), (512, 512, 18, 0), (4096, 512, 18, 0), (4099, 512, 31, 0), (33, 37, 7, 0), (7, 3, 31, 0), (1, 8, 1, 0),
     (256, 128, 10, 2), (33, 64, 18, 2),
 ]
+# (B, HW, V) of K7's calls, timed in phase 4b: the benchmark's session (32
+# players, 8x8 token frames, the 2^18 codebook), phase 15's session (one
+# player: 66 splits of a row, the last one shorter), phase 17's `generate`
+# (32 clips of 16x16 tokens, 2^10 codes), the rollouts of phases 6 and 18
+# and the CLI's (one clip), the compact phases'. Then the cases at which
+# phase 4b and the card tests hold K7 to its plain twin: (B, HW, V, logits
+# dtype, noise: "u" uniforms or Gumbel values in "f32" / "bf16", temp,
+# top_k): every path shape in the dtype and noise that its path gives (the
+# CLI's f32 rollouts with --top-k 1), then V = 1000 (no split of 1024
+# elements divides it), temperatures, top_k, HW 1100 (more positions than
+# the commit block's 1024 threads). The kernel takes V a multiple of 4 only
+# (`test_maskgit_sample_kernel_refuses_unaligned`).
+MASKGIT_PATH_SHAPES = [(32, 64, 2 ** 18), (1, 64, 2 ** 18), (32, 256, 2 ** 10),
+                       (1, 256, 2 ** 10), (2, 64, 2 ** 8)]
+MASKGIT_CASES = [
+    (32, 64, 2 ** 18, torch.bfloat16, "u", 1.0, None),
+    (1, 64, 2 ** 18, torch.bfloat16, "u", 1.0, None),
+    (32, 256, 2 ** 10, torch.bfloat16, "u", 1.0, None),
+    (1, 256, 2 ** 10, torch.bfloat16, "u", 1.0, None),
+    (1, 256, 2 ** 10, torch.float32, "u", 1.0, 1),
+    (1, 256, 2 ** 10, torch.float32, "f32", 1.0, 1),
+    (2, 64, 2 ** 8, torch.float32, "f32", 1.0, None),
+    (1, 64, 2 ** 8, torch.float32, "u", 1.0, 1),
+    (32, 64, 2 ** 18, torch.float32, "u", 0.8, None),
+    (8, 64, 2 ** 18, torch.bfloat16, "bf16", 1.0, None),
+    (8, 64, 2 ** 18, torch.bfloat16, "u", 1.0, 50),
+    (2, 64, 2 ** 8, torch.bfloat16, "u", 0.8, 3),
+    (16, 128, 1000, torch.bfloat16, "u", 1.0, None),
+    (16, 128, 1000, torch.float32, "f32", 1.0, None),
+    (4, 16, 1000, torch.bfloat16, "bf16", 0.8, None),
+    (1, 1100, 4096, torch.float32, "u", 1.0, None),
+]
+MASKGIT_CHECKED = {(b, hw, v) for b, hw, v, *_ in MASKGIT_CASES}
+# K7's confidence against the plain twin's: both sum exp(x - max) over V in
+# f32, in another order, so log-sum-exp and conf (about -13 at V = 2^18)
+# differ by a few ulps of their size. Where the plain twin's confidences at
+# a player's threshold lie within MASKGIT_NEAR_TIE, that rounding may pick
+# the other position, so the player's mask and code are not compared.
+MASKGIT_CONF_ATOL = 2e-6
+MASKGIT_NEAR_TIE = 1e-5
 # K1 and K3 in bf16 are held to their twins at every path case, then at tile
 # edges, ragged N and D = 128.
 FLASH_BF16_CASES = sorted({c for cases in PATH_CASES.values() for c in cases}) + [
@@ -931,6 +983,158 @@ def phase_lfq(dev) -> dict:
             "max_abs_err": err, **rows[0], "by_shape": rows}
 
 
+def maskgit_inputs(g, b: int, hw: int, v: int, dtype, noise: str, dev) -> tuple:
+    """K7's inputs: logits at the scale of a trained head's (std 3), the
+    noise (uniforms, or Gumbel values in f32 or bf16), a mask with about 60%
+    of the positions masked, an int64 code."""
+    from open_genie_tpu_torch.ops.kernels.maskgit_sample import gumbel_of_uniform
+
+    logits = (torch.randn(b, hw, v, generator=g, device=dev) * 3).to(dtype)
+    u = torch.rand(b, hw, v, generator=g, device=dev)
+    if noise != "u":
+        u = gumbel_of_uniform(u).to(torch.float32 if noise == "f32" else torch.bfloat16)
+    mask = torch.rand(b, hw, generator=g, device=dev) < 0.6
+    code = torch.randint(0, v, (b, hw), generator=g, device=dev)
+    return logits, u, mask, code
+
+
+def maskgit_check(logits, noise, mask, code, num_tokens: int, temp: float, uniform: bool,
+                  top_k=None, conf_atol: float = MASKGIT_CONF_ATOL) -> dict:
+    """K7 against its plain twin on the same tensors (with `top_k`, both
+    after `maskgit_commit`'s pre-mask): pred equal, conf within
+    `conf_atol`, mask and code equal for every player whose plain
+    confidences at the threshold are more than MASKGIT_NEAR_TIE apart or
+    all equal the kernel's; two calls bit-identical. Returns the largest |d conf|, the players compared
+    and the players."""
+    from open_genie_tpu_torch.ops.kernels.maskgit_sample import (
+        maskgit_sample,
+        maskgit_sample_plain,
+    )
+
+    if top_k is not None:
+        logits = logits.float() / temp
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits, temp = logits.masked_fill(logits < kth, float("-inf")), 1.0
+    got = maskgit_sample(logits, noise, mask, code, num_tokens, temp, uniform)
+    again = maskgit_sample(logits, noise, mask, code, num_tokens, temp, uniform)
+    want = maskgit_sample_plain(logits, noise, mask, code, num_tokens, temp, uniform)
+    torch.cuda.synchronize()
+    shape = tuple(logits.shape)
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), f"K7 {shape} not deterministic"
+    assert torch.equal(got[2], want[2]), (
+        f"K7 {shape}: pred differs at {int((got[2] != want[2]).sum())} positions")
+    live = mask
+    dconf = (got[3][live] - want[3][live]).abs().max().item() if live.any() else 0.0
+    assert dconf <= conf_atol and torch.equal(torch.isinf(got[3]), ~mask), (
+        f"K7 {shape}: |d conf| {dconf:.3g} > {conf_atol}")
+    hw = shape[1]
+    k = min(max(num_tokens - 1, 0), hw - 1)
+    sorted_conf = torch.sort(want[3], dim=-1, descending=True).values
+    decided = (torch.ones_like(mask[:, 0]) if k + 1 >= hw else
+               (sorted_conf[:, k] - sorted_conf[:, k + 1] > MASKGIT_NEAR_TIE)
+               | torch.isinf(sorted_conf[:, k + 1]))
+    decided |= (got[3] == want[3]).all(-1)  # the same confidences select the same
+    assert torch.equal(got[0][decided], want[0][decided]) and torch.equal(
+        got[1][decided], want[1][decided]), f"K7 {shape}: mask or code differs"
+    return {"max_abs_dconf": dconf, "players_compared": int(decided.sum()),
+            "players": shape[0]}
+
+
+def maskgit_bound(b: int, hw: int, v: int, logit_bytes: int = 2) -> dict:
+    """`bound` of K7 on `(b, hw, v)` logits and float32 uniforms: logits and
+    uniforms read once, mask and int64 code read, mask, code, pred (int64)
+    and conf (f32) written; per element a few f32 operations and three
+    transcendentals (two logs, one exp) on the special-function units."""
+    n, rows = b * hw * v, b * hw
+    return bound(6 * n, n * (logit_bytes + 4) + rows * (1 + 8 + 1 + 8 + 8 + 4),
+                 PEAK_F32_FLOPS, exps=3 * n)
+
+
+def phase_maskgit(dev) -> dict:
+    """Phase 4b: K7 against its plain twin at MASKGIT_CASES; the kernel
+    pair, the plain twin and the draw timed at the paths' shapes."""
+    from open_genie_tpu_torch.ops import kernels
+    from open_genie_tpu_torch.ops.kernels.maskgit_sample import (
+        maskgit_sample,
+        maskgit_sample_plain,
+        splits,
+    )
+
+    # ptxas's report of each instance: its entry, spills, then registers.
+    entry, spills = None, ""
+    for ln in kernels.BUILD["log"].splitlines():
+        found = re.search(r"entry function '(\w*maskgit\w*)'", ln)
+        if found:
+            entry = found.group(1)
+        elif entry and "spill" in ln:
+            spills = ln.strip()
+        elif entry and "registers" in ln:
+            print(f"[K7 build] {entry}: {ln.split(':', 1)[1].strip()}; {spills}")
+            entry = None
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    worst = 0.0
+    for b, hw, v, dtype, noise, temp, top_k in MASKGIT_CASES:
+        x, u, mask, code = maskgit_inputs(g, b, hw, v, dtype, noise, dev)
+        n = max(1, int(mask[0].sum()) // 2)
+        r = maskgit_check(x, u, mask, code, n, temp, noise == "u", top_k)
+        worst = max(worst, r["max_abs_dconf"])
+        print(f"[K7] (B,HW,V)=({b},{hw},{v}) {dtype} noise {noise} temp {temp} top_k {top_k}, "
+              f"{n} tokens: pred equal, |dconf| {r['max_abs_dconf']:.3g}, mask and code equal "
+              f"on {r['players_compared']}/{r['players']} players, repeat bit-identical")
+        del x, u, mask, code
+    rows = []
+    floor = cuda_ms(lambda: torch.cuda._sleep(0), graph=True)
+    for b, hw, v in MASKGIT_PATH_SHAPES:
+        x, u, mask, code = maskgit_inputs(g, b, hw, v, torch.bfloat16, "u", dev)
+        n = hw // 8
+        kernel = lambda: maskgit_sample(x, u, mask, code, n)  # noqa: E731
+        plain = lambda: maskgit_sample_plain(x, u, mask, code, n)  # noqa: E731
+        draw = lambda: torch.rand(x.shape, device=dev)  # noqa: E731
+        small = b * hw * v < 2 ** 24
+        iters = 50 if small else 20
+        t = in_turns(plain, kernel, plain_iters=iters, iters=iters, graph=small)
+        t["draw_ms"] = cuda_ms(draw, iters, graph=small)
+        t.update(maskgit_bound(b, hw, v))
+        s = splits(b * hw, v, torch.cuda.get_device_properties(dev).multi_processor_count)
+        gbs = (b * hw * v * 6) / (t["ms"] * 1e-3) / 1e9
+        print(f"[K7 time] bf16 (B,HW,V)=({b},{hw},{v}), {s} split(s) a row"
+              f"{', CUDA graphs' if small else ''}: kernel pair {t['ms']:.4f} ms "
+              f"({gbs:.0f} GB/s of logits and uniforms), plain {t['plain_ms']:.4f} ms, "
+              f"the uniform draw {t['draw_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}), exp floor {t['exp_floor_ms']:.4f} ms, empty kernel launch "
+              f"{floor:.4f} ms")
+        rows.append({**t, "shape": [b, hw, v], "splits": s})
+        del x, u, mask, code
+    _release_capture_stream()
+    by_shape = {str(k): c for k, c in maskgit_sample.launches_by_shape.items()}
+    print(f"[K7] launches by (B, HW, V) in this phase: {by_shape}")
+    return {"name": "maskgit_sample", "route": "cuda", "variant": "split_combine",
+            "source": "open_genie_tpu_torch/csrc/maskgit_sample.cu", "replaces": None,
+            "library_ms": None, "max_abs_err": worst, **rows[0], "by_shape": rows}
+
+
+def phase_maskgit_seen(dev) -> dict:
+    """The last phase: K7 against its plain twin, as in phase 4b, at every
+    (B, HW, V) that a phase since 4b launched it at and MASKGIT_CASES lacks
+    (`K7_SEEN`), in bf16 and f32 logits with uniforms. Returns every
+    shape seen with its launches."""
+    _reset_counts()  # folds the last phase's shapes into K7_SEEN
+    seen = {str(k): c for k, c in sorted(K7_SEEN.items())}
+    g = torch.Generator(device=dev).manual_seed(SEED + 42)
+    for b, hw, v in sorted(set(K7_SEEN) - MASKGIT_CHECKED):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, u, mask, code = maskgit_inputs(g, b, hw, v, dtype, "u", dev)
+            r = maskgit_check(x, u, mask, code, max(1, int(mask[0].sum()) // 2), 1.0, True)
+            print(f"[K7 seen] (B,HW,V)=({b},{hw},{v}) {dtype}: pred equal, |dconf| "
+                  f"{r['max_abs_dconf']:.3g}, mask and code equal on "
+                  f"{r['players_compared']}/{r['players']} players")
+            del x, u, mask, code
+    print(f"[K7 seen] launches by (B, HW, V) over the run: {seen}; held to the twin in phase "
+          f"4b: {sorted(set(K7_SEEN) & MASKGIT_CHECKED)}, here: "
+          f"{sorted(set(K7_SEEN) - MASKGIT_CHECKED)}")
+    return seen
+
+
 def phase_flash_bwd(dev) -> tuple:
     """K3 and K4 against the plain backward on the same inputs and the
     same saved forward: f32 at every attention shape of the training step,
@@ -1353,10 +1557,12 @@ def phase_compact_parity(dev):
     from open_genie_tpu_torch.models.genie import Genie
     from open_genie_tpu_torch.ops.kernels.flash_attention import flash_attention
     from open_genie_tpu_torch.ops.kernels.lfq_head import lfq_head
+    from open_genie_tpu_torch.ops.kernels.maskgit_sample import maskgit_sample
     from open_genie_tpu_torch.utils import init_weights
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    _reset_counts()
     g = torch.Generator().manual_seed(SEED + 2)
     cpu = init_weights(Genie(**genie_compact_config()), g).eval()
     gpu = copy.deepcopy(cpu).to(dev)
@@ -1367,18 +1573,23 @@ def phase_compact_parity(dev):
 
     tok_cpu = cpu.generate_tokens(prompt, actions, frames, steps, gumbel=gumbel)
     pix_cpu = cpu.tokenizer.decode_tokens(tok_cpu)
-    k1, k2 = flash_attention.launches, lfq_head.launches
+    k1, k2, k7 = flash_attention.launches, lfq_head.launches, maskgit_sample.launches
     tok_gpu = gpu.generate_tokens(prompt.to(dev), actions.to(dev), frames, steps,
                                   gumbel=gumbel.to(dev))
     pix_gpu = gpu.tokenizer.decode_tokens(tok_gpu).cpu()
-    launched = (flash_attention.launches - k1, lfq_head.launches - k2)
+    launched = (flash_attention.launches - k1, lfq_head.launches - k2,
+                maskgit_sample.launches - k7)
     same = torch.equal(tok_gpu.cpu(), tok_cpu)
     err = (pix_gpu - pix_cpu).abs().max().item()
     print(f"[compact] tokens {tuple(tok_gpu.shape)} equal CUDA vs CPU: {same}; "
-          f"pixels max |d| {err:.3g}; launches K1 {launched[0]}, K2 {launched[1]}")
+          f"pixels max |d| {err:.3g}; launches K1 {launched[0]}, K2 {launched[1]}, "
+          f"K7 {launched[2]}")
     assert same, "CUDA rollout tokens differ from the CPU plain rollout"
     torch.testing.assert_close(pix_gpu, pix_cpu, **PIX_TOL)
-    assert launched[0] > 0 and launched[1] == 1
+    assert launched[0] > 0 and launched[1] == 1 and launched[2] == 2 * frames * steps
+    k7 = _assert_k7_checked("compact")
+    assert k7 == {(b, 64, 2 ** 8): 2 * frames * steps}, f"K7 launched at {k7}"
+    return launched[2]
 
 
 def phase_full_width(dev) -> tuple:
@@ -1405,15 +1616,17 @@ def phase_full_width(dev) -> tuple:
     n_tok_attn = sum(1 for m in genie.tokenizer.modules()
                      if type(m).__name__ == "Attention")
     expect_k1 = n_tok_attn + n_layers * (1 + frames * (spf + 1))
+    k7 = _assert_k7_checked("full")
     print(f"[full] video {tuple(video.shape)} {video.dtype}; launches "
           f"K1 {launches['flash_attention_fwd']} (expected {expect_k1} = "
           f"{n_tok_attn} tokenizer + {n_layers} x (1 + {frames} x {spf + 1})), "
-          f"K2 {launches['lfq_head']}")
+          f"K2 {launches['lfq_head']}, K7 by (B, HW, V) {k7}")
     assert tuple(video.shape) == (1, 1 + frames, 64, 64, 3)
     assert torch.isfinite(video.float()).all(), "non-finite pixels"
     assert launches["flash_attention_fwd"] == expect_k1 == 638
     assert launches["lfq_head"] == 1
     assert launches["flash_attention_bwd_dkv"] == launches["flash_attention_bwd_dq"] == 0
+    assert k7 == {(1, 256, 2 ** 10): 2 * frames * spf}, f"K7 launched at {k7}"
 
     tok_a = genie.generate_tokens(prompt, actions, frames, spf, generator=gen())
     tok_b = genie.generate_tokens(prompt, actions, frames, spf, generator=gen())
@@ -1446,14 +1659,22 @@ def _counters() -> dict:
     )
     from open_genie_tpu_torch.ops.kernels.lfq_entropy import lfq_avg_probs, lfq_entropy_grad
     from open_genie_tpu_torch.ops.kernels.lfq_head import lfq_head
+    from open_genie_tpu_torch.ops.kernels.maskgit_sample import maskgit_sample
 
     return {"flash_attention_fwd": flash_attention, "lfq_head": lfq_head,
             "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
             "flash_attention_bwd_dq": flash_attention_bwd_dq,
-            "lfq_entropy_fwd": lfq_avg_probs, "lfq_entropy_bwd": lfq_entropy_grad}
+            "lfq_entropy_fwd": lfq_avg_probs, "lfq_entropy_bwd": lfq_entropy_grad,
+            "maskgit_sample": maskgit_sample}
+
+
+# K7's launches by (B, HW, V) over the whole run, gathered at each
+# `_reset_counts`; `phase_maskgit_seen` checks the shapes phase 4b did not.
+K7_SEEN = Counter()
 
 
 def _reset_counts() -> None:
+    K7_SEEN.update(_counters()["maskgit_sample"].launches_by_shape)
     for fn in _counters().values():
         fn.launches = 0
         for variant in getattr(fn, "launches_by_variant", {}):
@@ -1479,6 +1700,14 @@ def _read_shapes() -> dict:
 def _read_k2_shapes() -> dict:
     """Launches of K2 by (N, C, d) since the last `_reset_counts`."""
     return dict(_counters()["lfq_head"].launches_by_shape)
+
+
+def _assert_k7_checked(label: str) -> dict:
+    """K7 ran, since the last `_reset_counts`, only at shapes that phase 4b
+    holds to its twin (`MASKGIT_CASES`); its launches by (B, HW, V)."""
+    k7 = dict(_counters()["maskgit_sample"].launches_by_shape)
+    assert set(k7) <= MASKGIT_CHECKED, f"{label}: K7 at {sorted(set(k7) - MASKGIT_CHECKED)}"
+    return k7
 
 
 def _assert_path_kernels(label: str, path: str, show: bool = True) -> dict:
@@ -1585,7 +1814,8 @@ def phase_train_full_width(dev) -> dict:
     expect = {"flash_attention_fwd": n_tok + 2 * n_la + n_dyn,
               "flash_attention_bwd_dkv": n_la + n_dyn,
               "flash_attention_bwd_dq": n_la + n_dyn, "lfq_head": 1,
-              "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0}  # codebooks of <= 4096 codes
+              "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0,  # codebooks of <= 4096 codes
+              "maskgit_sample": 0}
     print(f"[train] {sum(p.numel() for p in module.parameters()) / 1e6:.1f}M parameters, "
           f"{sum(p.numel() for p in opt.params) / 1e6:.1f}M trainable; attentions: "
           f"tokenizer encoder {n_tok}, latent action {n_la}, dynamics {n_dyn}")
@@ -1713,7 +1943,7 @@ def phase_tokenizer_train_full_width(dev, cfg=None, label="tokenizer train",
     n_lfq = sum(isinstance(m, LookupFreeQuantization) for m in module.modules())
     expect = {"flash_attention_fwd": 3 * n_attn, "flash_attention_bwd_dkv": 3 * n_attn,
               "flash_attention_bwd_dq": 3 * n_attn, "lfq_head": 0,
-              "lfq_entropy_fwd": n_lfq, "lfq_entropy_bwd": n_lfq}
+              "lfq_entropy_fwd": n_lfq, "lfq_entropy_bwd": n_lfq, "maskgit_sample": 0}
     print(f"[{label}] {sum(p.numel() for p in module.parameters()) / 1e6:.1f}M "
           f"parameters, {sum(p.numel() for p in opt.params) / 1e6:.1f}M trainable; "
           f"discriminator attentions {n_attn}, LFQ codebooks {n_lfq}")
@@ -1836,17 +2066,23 @@ def phase_compact_serve(dev) -> None:
         _reset_counts()
         first = sess.reset(prompt, seed=0)
         frames = [sess.step(acts[i], gumbel=gumbel[i]) for i in range(n)]
-        runs[name] = (sess.tokens, first, torch.stack(frames, 1), _read_counts(), sess._rebases)
+        runs[name] = (sess.tokens, first, torch.stack(frames, 1), _read_counts(),
+                      sess._rebases)
     (tok_c, first_c, pix_c, _, _), (tok_g, first_g, pix_g, launched, rebases) = runs.values()
     same = torch.equal(tok_g, tok_c)
     err = max((first_g - first_c).abs().max().item(), (pix_g - pix_c).abs().max().item())
     print(f"[compact serve] tokens {tuple(tok_g.shape)} equal CUDA vs CPU: {same}; pixels "
           f"max |d| {err:.3g}; rebases {rebases}; launches K1 "
-          f"{launched['flash_attention_fwd']}, K2 {launched['lfq_head']}")
+          f"{launched['flash_attention_fwd']}, K2 {launched['lfq_head']}, "
+          f"K7 {launched['maskgit_sample']}")
     assert same, "CUDA session tokens differ from the CPU session's"
     torch.testing.assert_close(first_g, first_c, **PIX_TOL)
     torch.testing.assert_close(pix_g, pix_c, **PIX_TOL)
     assert rebases == 1 and launched["flash_attention_fwd"] > 0 and launched["lfq_head"] == 1
+    assert launched["maskgit_sample"] == 2 * spf * n
+    k7 = _assert_k7_checked("compact serve")
+    assert k7 == {(b, 64, 2 ** 8): 2 * spf * n}, f"K7 launched at {k7}"
+    return launched["maskgit_sample"]
 
 
 def _stream_layers_forced(tok, idxs: torch.Tensor, err) -> list:
@@ -1897,6 +2133,7 @@ def phase_serve_full_width(dev, smi: str) -> dict:
     _assert_path_kernels("serve", "serve")
     frames, lat = [sess.step(acts[0])], []
     per_step = {k: v - per_reset[k] for k, v in _read_counts().items()}
+    k7_shapes = _assert_k7_checked("serve")
     for a in acts[1:]:
         t0 = time.perf_counter()
         frames.append(sess.step(a))  # the copy to the host syncs
@@ -1912,6 +2149,10 @@ def phase_serve_full_width(dev, smi: str) -> dict:
     assert launches["flash_attention_fwd"] == n_dyn + len(frames) * n_dyn * (spf + 1)
     assert all(launches[k] == 0 for k in ("flash_attention_bwd_dkv", "flash_attention_bwd_dq",
                                           "lfq_entropy_fwd", "lfq_entropy_bwd"))
+    print(f"[serve] K7 launches per reset {per_reset['maskgit_sample']}, per step "
+          f"{per_step['maskgit_sample']}, by (B, HW, V) {k7_shapes}")
+    assert per_reset["maskgit_sample"] == 0 and per_step["maskgit_sample"] == 2 * spf
+    assert k7_shapes == {(1, 64, 2 ** 18): 2 * spf}, f"K7 launched at {k7_shapes}"
 
     # The session's noise is one generator seeded `seed`: the rollout with
     # a generator of that seed gives the same tokens (the horizons round to
@@ -1965,6 +2206,7 @@ def phase_serve_full_width(dev, smi: str) -> dict:
     print(f"[serve] rebase onto {keep} frames: launches at that step {at_rebase}")
     assert sess._rebases == 1 and torch.isfinite(after_rebase.float()).all()
     assert at_rebase["flash_attention_fwd"] == n_dyn * (keep + spf + 1)
+    assert at_rebase["maskgit_sample"] == 2 * spf
 
     # step_nosync chained, one sync at the end (fresh horizon: no rebase);
     # the peak memory is the session's own from here on, without the checks.
@@ -2073,8 +2315,10 @@ def _inference(label: str, path: str, run, expect: dict, smi: str) -> tuple:
     counts, shapes = _read_counts(), _read_shapes()
     variants = _assert_path_kernels(label, path, show=False)
     assert variants["flash_attention_fwd"]["mma"] == counts["flash_attention_fwd"]
+    k7 = _assert_k7_checked(label)
     print(f"[{label}] {smi}: {ms:.1f} ms, peak memory {peak:.2f} GiB; launches {counts}; "
-          f"K1 by (B*H, N, D, causal) {shapes['flash_attention_fwd']}")
+          f"K1 by (B*H, N, D, causal) {shapes['flash_attention_fwd']}"
+          f"{f'; K7 by (B, HW, V) {k7}' if k7 else ''}")
     assert counts == expect, f"launches {counts}, expected {expect}"
     return out, {"ms": ms, "peak_gib": peak, "launches": counts, "shapes": shapes}
 
@@ -2108,7 +2352,7 @@ def phase_stage1(dev, smi: str) -> dict:
     expect = {"flash_attention_fwd": 2 * n_tok + 3 * n_disc,
               "flash_attention_bwd_dkv": n_tok + 3 * n_disc,
               "flash_attention_bwd_dq": n_tok + 3 * n_disc, "lfq_head": 0,
-              "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0}
+              "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0, "maskgit_sample": 0}
     print(f"[stage1] {sum(p.numel() for p in module.parameters()) / 1e6:.1f}M parameters, "
           f"{sum(p.numel() for p in opt.params) / 1e6:.1f}M trainable; attentions: tokenizer "
           f"{n_tok}, discriminator {n_disc}")
@@ -2132,7 +2376,7 @@ def phase_stage1(dev, smi: str) -> dict:
         "stage1 eval", "stage1_eval", lambda: evaluate_tokenizer(tok16, loader),
         {"flash_attention_fwd": 2 * n_tok, "flash_attention_bwd_dkv": 0,
          "flash_attention_bwd_dq": 0, "lfq_head": 0, "lfq_entropy_fwd": 0,
-         "lfq_entropy_bwd": 0}, smi)
+         "lfq_entropy_bwd": 0, "maskgit_sample": 0}, smi)
     print(f"[stage1 eval] {smi}: PSNR {scores['psnr']:.3f} dB, SSIM {scores['ssim']:.4f}, "
           f"usage {scores['usage']:.4f} ({scores['distinct_codes']:.0f} of 1024 codes), "
           f"perplexity {scores['perplexity']:.1f}, over {scores['num_batches']} batches")
@@ -2163,8 +2407,7 @@ def phase_stage2_3(dev, smi: str) -> dict:
     torch.backends.cudnn.deterministic = True
     g = torch.Generator().manual_seed(SEED + 18)
     cfg = genie_train_config()
-    none = {"flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
-            "lfq_head": 0, "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0}
+    none = dict.fromkeys(_counters(), 0)
     act = init_weights(ActionTrainModule(cfg["latent_action"]), g).to(dev)
     opt = make_optimizer(act, lr=1e-4, weight_decay=0.01)
     n_la = _attn_count(act)
@@ -2227,7 +2470,8 @@ def phase_stage2_3(dev, smi: str) -> dict:
     new, gen_out = _inference(
         "generate", "generate",
         lambda: dyn16.generate(tokens[:, :hist], actions[:, :hist], steps, generator=gen),
-        {**none, "flash_attention_fwd": n_layers * (hist + steps)}, smi)
+        {**none, "flash_attention_fwd": n_layers * (hist + steps), "maskgit_sample": 2 * steps},
+        smi)
     print(f"[generate] {tuple(new.shape)}, new frame's ids in [{int(new[:, hist].min())}, "
           f"{int(new[:, hist].max())}]")
     assert tuple(new.shape) == (STAGE3_BATCH[0], hist + 1, 16, 16)
@@ -2279,7 +2523,7 @@ def phase_rollout_full(dev, smi: str) -> dict:
         "rollout full", "rollout_full", run,
         {"flash_attention_fwd": n_tok + frames * spf * n_dyn, "flash_attention_bwd_dkv": 0,
          "flash_attention_bwd_dq": 0, "lfq_head": 1, "lfq_entropy_fwd": 0,
-         "lfq_entropy_bwd": 0}, smi)
+         "lfq_entropy_bwd": 0, "maskgit_sample": 2 * frames * spf}, smi)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cached = genie.rollout_tokens(tokens, actions, frames, spf, generator=noise())
@@ -2509,7 +2753,7 @@ def assert_tokenize_launches(counts: dict, k2: dict, n_clips: int, per_clip: int
     assert k2 == {(4096, 64, 10): n_clips}, f"K2 launched at {k2}"
     assert counts == {"flash_attention_fwd": n_clips * per_clip, "lfq_head": n_clips,
                       "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
-                      "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0}, counts
+                      "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0, "maskgit_sample": 0}, counts
 
 
 def anneal_scales(steps: int, start: int, ramp: int, floor: float) -> list:
@@ -2580,7 +2824,7 @@ def phase_trainer_tokenizer(dev, smi: str, bare_ms: float, work: Path) -> dict:
     expect = {"flash_attention_fwd": 2 * n_tok + 3 * n_disc,
               "flash_attention_bwd_dkv": n_tok + 3 * n_disc,
               "flash_attention_bwd_dq": n_tok + 3 * n_disc, "lfq_head": 0,
-              "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0}
+              "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0, "maskgit_sample": 0}
     torch.cuda.reset_peak_memory_stats()
     with TrainerWatch() as watch:
         watch.new_run()
@@ -2671,7 +2915,7 @@ def phase_trainer_dynamics(dev, smi: str, work: Path) -> dict:
         n_dyn = _attn_count(DynamicsTrainModule(**dynamics_yaml_config()))
     expect = {"flash_attention_fwd": n_dyn, "flash_attention_bwd_dkv": n_dyn,
               "flash_attention_bwd_dq": n_dyn, "lfq_head": 0, "lfq_entropy_fwd": 0,
-              "lfq_entropy_bwd": 0}
+              "lfq_entropy_bwd": 0, "maskgit_sample": 0}
     torch.cuda.reset_peak_memory_stats()
     with _Tf32Off(), TrainerWatch() as watch:
         for name in ("whole", "resumed"):
@@ -2793,7 +3037,7 @@ def phase_trainer_r05b(dev, smi: str, work: Path, name: str = "r05b_tokenizer.ya
             assert_trainer_launches(f"trainer {label}", "r05b_train", watch.steps, {
                 "flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0,
                 "flash_attention_bwd_dq": 0, "lfq_head": 0, "lfq_entropy_fwd": 0,
-                "lfq_entropy_bwd": 0})
+                "lfq_entropy_bwd": 0, "maskgit_sample": 0})
     finally:
         TokenizerTrainModule.forward, AdamW.step = forward, opt_step
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2890,7 +3134,8 @@ def phase_trainer_r05b_genie(dev, smi: str, work: Path) -> dict:
     assert all(s["launches"] == per_step for s in watch.steps), [
         s["launches"] for s in watch.steps]
     assert all(per_step[k] > 0 for k in _FLASH) and per_step["lfq_head"] == 1 and (
-        per_step["lfq_entropy_fwd"] == per_step["lfq_entropy_bwd"] == 0), per_step
+        per_step["lfq_entropy_fwd"] == per_step["lfq_entropy_bwd"] == 0
+        == per_step["maskgit_sample"]), per_step
     assert state.step == R05B_GENIE_STEPS and first == R05B_GENIE_STEPS
     assert all_steps(str(run / "ckpt")) == [R05B_GENIE_SAVE_AT]
     records, again = read_jsonl(run / "logs"), read_jsonl(resumed / "logs")
@@ -3242,7 +3487,7 @@ def phase_gvid(dev, smi: str, work: Path) -> dict:
     expect = {"flash_attention_fwd": 2 * n_tok + 3 * n_disc,
               "flash_attention_bwd_dkv": n_tok + 3 * n_disc,
               "flash_attention_bwd_dq": n_tok + 3 * n_disc, "lfq_head": 0,
-              "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0}
+              "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0, "maskgit_sample": 0}
     seen, forward = [], TokenizerTrainModule.forward
 
     @functools.wraps(forward)
@@ -3450,6 +3695,8 @@ def phase_generate_play(dev, smi: str, work: Path, train_launches: dict) -> dict
               f"{spf + 1}) + {n_dec} decode), K2 by (N, C, d) {k2}")
         assert video.shape == (frames + 1, 64, 64, 3) and np.isfinite(video).all()
         assert counts["flash_attention_fwd"] == want_k1 and k2 == {(256, 64, 10): 1}, counts
+        k7 = _assert_k7_checked("generate")
+        assert k7 == {(1, 256, 2 ** 10): 2 * frames * spf}, f"K7 launched at {k7}"
         f32_path_check("generate", set(shapes), dev)
         out.update(ms=ms, ms_per_frame=per_frame, equal_to_cpu=share,
                    launches={k: counts[k] for k in counts})
@@ -3530,6 +3777,9 @@ def phase_generate_play(dev, smi: str, work: Path, train_launches: dict) -> dict
     assert all(k1[i] == (per_step + keep * (n_dyn + dec_frame) if i in rebased else per_step)
                for i in range(len(steps))), k1
     assert all(s[2]["lfq_head"] == 0 for s in steps)
+    assert at_reset["maskgit_sample"] == 0 and all(s[2]["maskgit_sample"] == 2 * 8
+                                                   for s in steps), [s[2] for s in steps]
+    print(f"[play] K7 by (B, HW, V) {_assert_k7_checked('play')}")
     f32_path_check("play", set(shapes), dev)
     out["play"] = {"p50_ms": p50, "p95_ms": p95, "reset_ms": reset_ms,
                    "per_reset": at_reset, "per_step": steps[0][2],
@@ -3554,8 +3804,9 @@ def phase_eval_genie_dynamics(dev, smi: str, work: Path, genie_cfg: str) -> dict
           f"rollouts (4 frames, 4 action and 4 noise branches; set-up included); loss {report['loss']:.4f}, "
           f"action-to-noise ratio {report['action_to_noise_ratio']:.3f} over a pool of "
           f"{report['controllability_pool']:.0f}; launches {counts}; K1 by shape {shapes}")
-    assert batches == 2 and counts["lfq_head"] > 0
-    print(f"[eval genie] K2 by (N, C, d) {_assert_k2_checked('eval genie')}")
+    assert batches == 2 and counts["lfq_head"] > 0 and counts["maskgit_sample"] > 0
+    print(f"[eval genie] K2 by (N, C, d) {_assert_k2_checked('eval genie')}; K7 by (B, HW, V) "
+          f"{dict(_counters()['maskgit_sample'].launches_by_shape)}")
     f32_path_check("eval genie", set(shapes), dev)
     out["eval_genie"] = {"ms": ms, "launches": counts}
 
@@ -3570,7 +3821,7 @@ def phase_eval_genie_dynamics(dev, smi: str, work: Path, genie_cfg: str) -> dict
     print(f"[eval dynamics] {smi}: {ms / batches:.1f} ms per batch ({batches} batch(es) of "
           f"phase 21's validation shards, f32, set-up included); loss {report['loss']:.4f}, masked acc "
           f"{report['masked_acc']:.4f}; launches {counts}; K1 by shape {shapes}")
-    assert counts["lfq_head"] == 0 and counts["flash_attention_fwd"] > 0
+    assert counts["lfq_head"] == counts["maskgit_sample"] == 0 and counts["flash_attention_fwd"] > 0
     f32_path_check("eval dynamics", set(shapes), dev)
     out["eval_dynamics_cli"] = {"ms": ms, "launches": counts}
     return out
@@ -4780,6 +5031,7 @@ def main() -> int:
     phase_build()
     k1 = phase_flash(dev)
     k2 = phase_lfq(dev)
+    k7 = phase_maskgit(dev)
     phase_compact_parity(dev)
     rollout = phase_full_width(dev)
     k1_times, k3, k4 = phase_flash_bwd(dev)
@@ -4841,7 +5093,8 @@ def main() -> int:
                  "generate_cli": gen["launches"], "play": gen["play"]["per_step"],
                  "eval_genie": evals["eval_genie"]["launches"],
                  "eval_dynamics_cli": evals["eval_dynamics_cli"]["launches"]}
-    kernels = [k1, k2, k3, k4, k5, k6]
+    k7["launches_by_shape"] = phase_maskgit_seen(dev)
+    kernels = [k1, k2, k3, k4, k5, k6, k7]
     for k in kernels:
         name = k["name"]
         # Phases 31 to 33 first: one step of `cli train genie` on
@@ -4878,7 +5131,7 @@ def main() -> int:
                    "train_step": train.get(name, 0), "rollout": rollout.get(name, 0)}
         # The newest path that runs the kernel, in the order above: phase
         # 31's r05b Genie step for K1 to K4, the distributed MAGVIT2 step
-        # for K5 and K6.
+        # for K5 and K6, the CLI's `generate` for K7 (a call; `play` a step).
         k["launches"] = next((c for c in by_path.values() if c > 0), 0)
         k["launches_by_path"] = by_path
         k["serve_launches"] = {"per_reset": serve["per_reset"][name],

@@ -13,6 +13,7 @@ from torch import nn
 
 from open_genie_tpu_torch.modules import blueprint_out_width, parse_blueprint
 from open_genie_tpu_torch.modules.attention import st_attn_cache
+from open_genie_tpu_torch.ops.kernels.maskgit_sample import gumbel_of_uniform, maskgit_sample
 from open_genie_tpu_torch.parallel import collectives
 from open_genie_tpu_torch.parallel.tensor import vocab_parallel_argmax, vocab_parallel_log_prob
 from open_genie_tpu_torch.utils import module_dtype
@@ -45,11 +46,14 @@ def get_schedule(steps: int, shape: Tuple[int, int], which: str = "linear") -> n
 def gumbel_noise(shape, generator: torch.Generator, device=None) -> torch.Tensor:
     """Standard Gumbel noise rounded to bf16 (the JAX package draws it in
     bf16), from `generator`, returned as float32."""
+    return gumbel_of_uniform(_uniform(shape, generator, device))
+
+
+def _uniform(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """The one float32 uniform draw behind a refinement's Gumbel noise."""
     if generator is None:
         raise ValueError("pass a torch.Generator or a gumbel noise tensor")
-    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
-    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
-    return (-torch.log(-torch.log(u))).to(torch.bfloat16).float()
+    return torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
 
 
 def maskgit_commit(
@@ -71,33 +75,34 @@ def maskgit_commit(
       num_tokens: tokens to commit this step.
       top_k: sample among each position's `top_k` highest logits.
       generator / gumbel: the Gumbel noise, given as a `(B, HW, V)` tensor
-        or drawn from the generator.
+        or drawn from the generator (one float32 uniform draw of the
+        logits' shape).
 
     Samples by Gumbel-argmax; confidence is the sampled token's
     log-probability. The `num_tokens` most confident masked positions
     commit by a descending sort and a threshold compare, so on an exact
-    confidence tie at the threshold both positions commit.
+    confidence tie at the threshold both positions commit. All after the
+    draw is `ops.kernels.maskgit_sample`: kernel K7 on the card, its plain
+    twin on the CPU.
     """
-    b, hw, v = logits.shape
-    logits = logits.float() / temp
+    v = logits.shape[-1]
+    if logits.dtype not in (torch.float32, torch.bfloat16):
+        logits = logits.float()
     if top_k is not None:
         assert top_k >= 1, f"top_k must be >= 1, got {top_k}"
         if top_k < v:
+            logits = logits.float() / temp
             kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
-            logits = logits.masked_fill(logits < kth, float("-inf"))
+            logits, temp = logits.masked_fill(logits < kth, float("-inf")), 1.0
     if gumbel is None:
-        gumbel = gumbel_noise(logits.shape, generator, device=logits.device)
-    pred = torch.argmax(logits + gumbel.float(), dim=-1)  # (B, HW)
-    logp = torch.gather(logits, -1, pred[..., None])[..., 0]
-    conf = logp - torch.logsumexp(logits, dim=-1)
-    conf = conf.masked_fill(~mask, float("-inf"))
-
-    sorted_conf = torch.sort(conf, dim=-1, descending=True).values
-    idx = min(max(int(num_tokens) - 1, 0), hw - 1)
-    thr = sorted_conf[:, idx: idx + 1]  # the num_tokens-th best per row
-    commit = (conf >= thr) & mask
-    code = torch.where(commit, pred.to(code.dtype), code)
-    return mask & ~commit, code
+        noise = _uniform(logits.shape, generator, logits.device)
+    else:
+        noise = gumbel if gumbel.dtype in (torch.float32, torch.bfloat16) else gumbel.float()
+    mask, code, _, _ = maskgit_sample(
+        logits.contiguous(), noise.contiguous(), mask, code, num_tokens, temp,
+        uniform=gumbel is None,
+    )
+    return mask, code
 
 
 class DynamicsModel(nn.Module):

@@ -48,6 +48,10 @@ _SIGNATURES = {
     "lfq_entropy_fwd": (_P, _P, _P, _I, _I, _F, _P),
     # x, w, scratch, dx, n, d, beta, stream
     "lfq_entropy_bwd": (_P, _P, _P, _P, _I, _I, _F, _P),
+    # logits, dtype, noise, noise kind, temp, b, hw, v, splits, scratch,
+    # mask, code, code dtype, num_tokens, mask_out, code_out, pred, conf, stream
+    "maskgit_sample": (_P, _I, _P, _I, _F, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P,
+                       _P, _P),
 }
 
 

@@ -18,7 +18,14 @@ against their twins, which use the same factorized, cancellation-free
 algorithm with the products in float64: q within 1e-5 of max q (f32 sums
 over the tokens); the entropy gradient dx / n within atol 2e-4 / rtol 2e-2
 and at cosine above 0.99999 (f32 sums of p w, whose w change sign); two
-calls bit-identical.
+calls bit-identical. K7 (the MaskGIT commit) against its plain twin on
+the same logits and noise: pred exactly (x, the Gumbel noise and their sum
+are the twin's own f32 arithmetic), conf within 2e-6 (the log-sum-exp sums
+over V in another order, a few ulps of a conf near -13), mask and code
+exactly for every player whose twin confidences at the threshold lie more
+than 1e-5 apart (`chip_smoke.maskgit_check`); the generator left as the
+draw before the kernel left it, and the session token-exact with
+`rollout_tokens` of the same seed.
 """
 import math
 
@@ -44,6 +51,10 @@ from open_genie_tpu_torch.ops.kernels.lfq_entropy import (  # noqa: E402
     lfq_entropy_grad,
 )
 from open_genie_tpu_torch.ops.kernels.lfq_head import lfq_head  # noqa: E402
+from open_genie_tpu_torch.ops.kernels.maskgit_sample import (  # noqa: E402
+    maskgit_sample,
+    maskgit_sample_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -203,3 +214,83 @@ def test_lfq_entropy_kernels_refuse_what_they_do_not_take(cuda):
             lfq_avg_probs(torch.zeros(8, d, device=cuda), 10.0)
     with pytest.raises(ValueError, match="shape"):
         lfq_entropy_grad(torch.zeros(8, 13, device=cuda), torch.zeros(10, device=cuda), 10.0)
+
+
+@pytest.mark.parametrize("b,hw,v,dtype,noise,temp,top_k", chip_smoke.MASKGIT_CASES)
+def test_maskgit_sample_kernel(cuda, b, hw, v, dtype, noise, temp, top_k):
+    g = torch.Generator(device=cuda).manual_seed(b * hw + v)
+    x, u, mask, code = chip_smoke.maskgit_inputs(g, b, hw, v, dtype, noise, cuda)
+    before = maskgit_sample.launches
+    chip_smoke.maskgit_check(x, u, mask, code, max(1, int(mask[0].sum()) // 2), temp,
+                             noise == "u", top_k)
+    assert maskgit_sample.launches == before + 4  # two calls of two kernels
+
+
+@pytest.mark.parametrize("scale,conf_atol", [(0.01, chip_smoke.MASKGIT_CONF_ATOL), (40.0, 1e-4)])
+def test_maskgit_sample_kernel_at_logit_scales(cuda, scale, conf_atol):
+    """Logits nearly flat (the noise decides the token) and far apart (the
+    logits decide it): pred still the twin's. At std 40 the log-sum-exp is
+    near 180, whose f32 ulp is 1.5e-5, so conf is held to 1e-4 there."""
+    g = torch.Generator(device=cuda).manual_seed(int(scale * 100))
+    x, u, mask, code = chip_smoke.maskgit_inputs(g, 8, 64, 2 ** 18, torch.float32, "u", cuda)
+    chip_smoke.maskgit_check(x * (scale / 3), u, mask, code, 8, 1.0, True, conf_atol=conf_atol)
+
+
+def test_maskgit_sample_kernel_refuses_unaligned(cuda):
+    """The kernel loads 4 elements at once: V = 1001, or logits a bf16
+    element off an 8-byte boundary, raise before any launch."""
+    b, hw = 4, 16
+    mask = torch.ones(b, hw, dtype=torch.bool, device=cuda)
+    code = torch.zeros(b, hw, dtype=torch.int64, device=cuda)
+    before = maskgit_sample.launches
+    with pytest.raises(ValueError, match="multiple of 4"):
+        maskgit_sample(torch.zeros(b, hw, 1001, device=cuda),
+                       torch.rand(b, hw, 1001, device=cuda), mask, code, 2)
+    off = torch.zeros(b * hw * 1024 + 1, dtype=torch.bfloat16, device=cuda)[1:].view(b, hw, 1024)
+    with pytest.raises(ValueError, match="aligned"):
+        maskgit_sample(off, torch.rand(b, hw, 1024, device=cuda), mask, code, 2)
+    assert maskgit_sample.launches == before
+
+
+def test_maskgit_commit_draws_as_before_on_the_card(cuda):
+    """One refinement from a generator: K7's commit equals the plain twin's
+    on the noise that `gumbel_noise` draws from a generator of the same
+    seed, and both generators end in the same state."""
+    from open_genie_tpu_torch.models.dynamics import gumbel_noise, maskgit_commit
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    b, hw, v = 8, 64, 2 ** 18
+    x = (torch.randn(b, hw, v, generator=g, device=cuda) * 3).to(torch.bfloat16)
+    mask = torch.rand(b, hw, generator=g, device=cuda) < 0.6
+    code = torch.zeros(b, hw, dtype=torch.int64, device=cuda)
+    gens = [torch.Generator(device=cuda).manual_seed(7) for _ in range(2)]
+    got = maskgit_commit(x, mask, code, 8, generator=gens[0])
+    want = maskgit_sample_plain(x, gumbel_noise(x.shape, gens[1], device=cuda), mask, code, 8,
+                                uniform=False)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
+
+
+def test_session_replays_rollout_on_the_card(cuda):
+    """The compact session's own noise, through K7 at every refinement:
+    seeded like the generator given to `rollout_tokens`, it gives the
+    rollout's tokens."""
+    from open_genie_tpu_torch.models.configs import genie_compact_config
+    from open_genie_tpu_torch.models.genie import Genie
+    from open_genie_tpu_torch.serve import InteractiveSession
+    from open_genie_tpu_torch.utils import init_weights
+
+    g = torch.Generator().manual_seed(2)
+    genie = init_weights(Genie(**genie_compact_config()), g).to(cuda).eval()
+    steps, n = 4, 3
+    prompt = torch.rand(2, 1, 32, 32, 3, generator=g)
+    acts = torch.randint(0, genie.act_vocab, (2, 1 + n), generator=g)
+    sess = InteractiveSession(genie, max_frames=n, steps_per_frame=steps, device=cuda)
+    sess.reset(prompt, seed=5, prompt_actions=acts[:, :1])
+    before = maskgit_sample.launches
+    for i in range(n):
+        sess.step(acts[:, 1 + i])
+    assert maskgit_sample.launches - before == 2 * steps * n
+    want = genie.rollout_tokens(genie.tokenize_prompt(prompt.to(cuda)), acts.to(cuda), n,
+                                steps, generator=torch.Generator(device=cuda).manual_seed(5))
+    assert torch.equal(sess.tokens.cpu(), want.cpu())
