@@ -31,6 +31,18 @@ Phases, in order (any failure raises and the exit code is non-zero):
      counts K7's launches with the other kernels' (`_counters`), and the
      last one holds K7 to its twin at any shape a phase ran that 4b did not
      (`phase_maskgit_seen`);
+  4c. kernel K8 (the sparse-expert layer's grouped products, CUDA)
+     against its plain twin at `MOE_CASES` (the block-diffusion cell's
+     refinement pass, 128-row tiles, the compact SDAR layer, an idle
+     expert), two calls bit-identical, two launches a call; timed at
+     `MOE_PATH_SHAPES` beside the twin and the bound; then kernel K9
+     (grouped-query attention of a block over the cached prefix, CUDA)
+     against the f32 twin at `BLOCK_ATTN_CASES`, timed at
+     `BLOCK_ATTN_PATH_SHAPES`;
+  4d. the SDAR block step at the compact width in bf16 against the plain
+     f32 reference (`tests/sdar_reference.py`): prefill, refinements and
+     commits through the caches, K8 twice a layer pass, the attention
+     kernels named, `BlockSession` steps;
   5. the compact rollout model on the card against the same model on the
      CPU (plain twins there), same weights and Gumbel noise, f32 (K7 twice a
      refinement);
@@ -238,6 +250,7 @@ from __future__ import annotations
 import argparse
 import copy
 import functools
+import importlib.util
 import itertools
 import json
 import math
@@ -402,7 +415,9 @@ LFQ_HEAD_CASES = [(n, c, d, 0) for n, c, d in LFQ_HEAD_PATH_SHAPES] + [
     (256, 128, 10, 2), (33, 64, 18, 2),
 ]
 # (B, HW, V) of K7's calls, timed in phase 4b: the benchmark's session (32
-# players, 8x8 token frames, the 2^18 codebook), phase 15's session (one
+# players, 8x8 token frames, the 2^18 codebook), the block-diffusion cell's
+# (64 rows, blocks of 4 tokens, SDAR's 151,936-token vocabulary, a multiple
+# of 4 and no power of 2), phase 15's session (one
 # player: 66 splits of a row, the last one shorter), phase 17's `generate`
 # (32 clips of 16x16 tokens, 2^10 codes), the rollouts of phases 6 and 18
 # and the CLI's (one clip), the compact phases'. Then the cases at which
@@ -414,9 +429,10 @@ LFQ_HEAD_CASES = [(n, c, d, 0) for n, c, d in LFQ_HEAD_PATH_SHAPES] + [
 # the commit block's 1024 threads). The kernel takes V a multiple of 4 only
 # (`test_maskgit_sample_kernel_refuses_unaligned`).
 MASKGIT_PATH_SHAPES = [(32, 64, 2 ** 18), (1, 64, 2 ** 18), (32, 256, 2 ** 10),
-                       (1, 256, 2 ** 10), (2, 64, 2 ** 8)]
+                       (1, 256, 2 ** 10), (2, 64, 2 ** 8), (64, 4, 151936)]
 MASKGIT_CASES = [
     (32, 64, 2 ** 18, torch.bfloat16, "u", 1.0, None),
+    (64, 4, 151936, torch.bfloat16, "u", 1.0, None),
     (1, 64, 2 ** 18, torch.bfloat16, "u", 1.0, None),
     (32, 256, 2 ** 10, torch.bfloat16, "u", 1.0, None),
     (1, 256, 2 ** 10, torch.bfloat16, "u", 1.0, None),
@@ -1135,6 +1151,268 @@ def phase_maskgit_seen(dev) -> dict:
     return seen
 
 
+# Kernel K8 (the sparse-expert layer's grouped products, CUDA): (tokens,
+# experts, top_k, C, I) at which phase 4c holds it to its plain twin: the
+# block-diffusion cell's refinement pass (64 rows x a block of 4 tokens
+# into SDAR-30B-A3B's 128 experts at top 8, 2048 -> 768 -> 2048; 32-row
+# tiles), 2048 tokens (64-row tiles, two or three an expert), the compact SDAR
+# model's layer, and a ragged case with an idle expert and I = 48.
+MOE_CASES = [(256, 128, 8, 2048, 768), (2048, 128, 8, 2048, 768), (24, 8, 2, 64, 32),
+             (5, 16, 2, 64, 48)]
+MOE_PATH_SHAPES = [(256, 128, 8, 2048, 768)]
+
+
+def moe_inputs(g, t: int, e: int, k: int, c: int, i: int, dev, idle=None) -> tuple:
+    """K8's inputs: bf16 tokens and weights (std fan_in^-0.5), `k` distinct
+    experts a token (never `idle`), routed by `route_slots`, and softmax
+    routing weights."""
+    from open_genie_tpu_torch.ops.kernels.moe_experts import route_slots
+
+    x = torch.randn(t, c, generator=g, device=dev).bfloat16()
+    wgu = (torch.randn(e, 2 * i, c, generator=g, device=dev) * c ** -0.5).bfloat16()
+    wd = (torch.randn(e, c, i, generator=g, device=dev) * i ** -0.5).bfloat16()
+    score = torch.rand(t, e, generator=g, device=dev)
+    if idle is not None:
+        score[:, idle] = -1.0
+    idx = score.topk(k, -1).indices
+    wts = torch.softmax(torch.randn(t, k, generator=g, device=dev), -1).flatten()
+    order, offsets = route_slots(idx, torch.arange(e + 1, device=dev))
+    return x, wgu, wd, order, offsets, wts, torch.bincount(idx.flatten(), minlength=e)
+
+
+def moe_bound(t: int, hit: int, k: int, c: int, i: int) -> dict:
+    """`bound` of K8's two launches on one pass (as the benchmark's
+    `moe_yardstick.experts_bound`): the weights of every expert hit read
+    once, the tokens, slots and routing weights, h written and read, the
+    f32 output written."""
+    s = t * k
+    nbytes = hit * 3 * c * i * 2 + t * c * 2 + s * 12 + 2 * s * i * 2 + s * c * 4
+    return bound(2 * s * 3 * c * i, nbytes, PEAK_BF16_FLOPS)
+
+
+def phase_moe_experts(dev) -> dict:
+    """Phase 4c: K8 against its plain twin at MOE_CASES (the f32 sums of
+    bf16 products in another order, h rounded to bf16 on both sides: within
+    `bf16_excess`), two calls bit-identical, two launches a call whatever
+    the expert count; the kernel pair and the twin timed at
+    MOE_PATH_SHAPES beside the bound."""
+    from open_genie_tpu_torch.ops.kernels.moe_experts import (
+        block_m,
+        moe_experts,
+        moe_experts_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 43)
+    worst = 0.0
+    for t, e, k, c, i in MOE_CASES:
+        idle = 3 if t < 8 else None
+        x, wgu, wd, order, offsets, wts, counts = moe_inputs(g, t, e, k, c, i, dev, idle)
+        before = moe_experts.launches
+        got = moe_experts(x, wgu, wd, order, offsets, wts, k)
+        again = moe_experts(x, wgu, wd, order, offsets, wts, k)
+        torch.cuda.synchronize()
+        assert moe_experts.launches == before + 4, "K8: two launches a call"
+        assert torch.equal(got, again), f"K8 ({t}, {e}, {k}, {c}, {i}) not deterministic"
+        want = moe_experts_plain(x, wgu, wd, order, offsets, wts, k)
+        err = bf16_excess(got, want)
+        worst = max(worst, err)
+        assert err <= 1, f"K8 ({t}, {e}, {k}, {c}, {i}): {err:.3g} of the bf16 limit"
+        print(f"[K8] (T,E,k,C,I)=({t},{e},{k},{c},{i}), {block_m(t * k, e)}-row tiles, "
+              f"experts hit {int((counts > 0).sum())}, busiest {int(counts.max())}: "
+              f"{err:.3f} of the bf16 limit, repeat bit-identical")
+        del x, wgu, wd, got, again, want
+    rows = []
+    for t, e, k, c, i in MOE_PATH_SHAPES:
+        x, wgu, wd, order, offsets, wts, counts = moe_inputs(g, t, e, k, c, i, dev)
+        kernel = lambda: moe_experts(x, wgu, wd, order, offsets, wts, k)  # noqa: E731
+        plain = lambda: moe_experts_plain(x, wgu, wd, order, offsets, wts, k)  # noqa: E731
+        tm = in_turns(plain, kernel, plain_iters=3, iters=50)
+        tm.update(moe_bound(t, int((counts > 0).sum()), k, c, i))
+        gbs = 3 * e * c * i * 2 / (tm["ms"] * 1e-3) / 1e9
+        print(f"[K8 time] bf16 (T,E,k,C,I)=({t},{e},{k},{c},{i}): kernel pair "
+              f"{tm['ms']:.4f} ms ({gbs:.0f} GB/s of expert weights), plain {tm['plain_ms']:.3f}"
+              f" ms, bound {tm['bound_ms']:.4f} ms ({tm['bound_by']}), "
+              f"{100 * tm['bound_ms'] / tm['ms']:.1f}% of it")
+        rows.append({**tm, "shape": [t, e, k, c, i]})
+        del x, wgu, wd
+    # The whole layer (routing, dispatch, K8, combine) launches as many
+    # kernels with 8 experts as with 128.
+    from torch.profiler import ProfilerActivity, profile
+
+    from open_genie_tpu_torch.modules.moe import SparseMoE
+
+    per_layer = {}
+    for e in (8, 128):
+        moe = SparseMoE(256, e, 8, 128).to(dev, torch.bfloat16)
+        x = torch.randn(256, 256, generator=g, device=dev).bfloat16()
+        moe(x)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            moe(x)
+            torch.cuda.synchronize()
+        per_layer[e] = sum(ev.count for ev in prof.key_averages() if ev.device_type.name == "CUDA")
+    print(f"[K8] device ops of one SparseMoE layer call (256 tokens, top 8) by expert count: "
+          f"{per_layer} (test_sparse_moe_launches_do_not_grow_with_experts holds them within "
+          f"2 of each other: torch's sorts change algorithm with the width)")
+    by_shape = {str(k): n for k, n in moe_experts.launches_by_shape.items()}
+    print(f"[K8] launches by (slots, experts, C, I, top_k) in this phase: {by_shape}")
+    return {"name": "moe_experts", "route": "cuda", "variant": "grouped",
+            "source": "open_genie_tpu_torch/csrc/moe_experts.cu", "replaces": None,
+            "library_ms": None, "max_abs_err": worst, **rows[0], "by_shape": rows}
+
+
+# Kernel K9 (grouped-query attention of a block over the cached prefix,
+# CUDA): (B, n_head, n_kv_head, N, D, end) at which phase 4c holds it to
+# the f32 twin: the block-diffusion cell's first and last blocks (64 rows,
+# SDAR's 32/4 heads of 128 over 1,028 and 1,280 cached tokens), the
+# compact SDAR model's, a ragged end and another group size.
+BLOCK_ATTN_CASES = [(64, 32, 4, 4, 128, 1028), (64, 32, 4, 4, 128, 1280), (4, 4, 2, 4, 16, 20),
+                    (3, 8, 2, 4, 64, 77)]
+BLOCK_ATTN_PATH_SHAPES = [(64, 32, 4, 4, 128, 1152)]
+
+
+def block_attn_bound(b: int, nq: int, nk: int, n: int, d: int, end: int) -> dict:
+    """`bound` of K9: the prefix's keys and values read once, q read and
+    the output written, all bf16; 4 d operations per (query, key) pair."""
+    pairs = b * nq * n * end
+    return bound(4 * d * pairs, 2 * (2 * b * nk * end * d + 2 * b * n * nq * d),
+                 PEAK_BF16_FLOPS, exps=pairs)
+
+
+def phase_block_attention(dev) -> dict:
+    """Phase 4c (K9): the kernel against the plain twin on the f32 casts of
+    the same bf16 inputs at BLOCK_ATTN_CASES (within `bf16_excess`: the
+    kernel rounds p to bf16), one launch a call, two calls bit-identical;
+    timed at BLOCK_ATTN_PATH_SHAPES beside the twin and the bound."""
+    from open_genie_tpu_torch.ops.kernels.block_attention import (
+        block_attention,
+        block_attention_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 47)
+    worst, rows = 0.0, []
+    for b, nq, nk, n, d, end in BLOCK_ATTN_CASES + BLOCK_ATTN_PATH_SHAPES:
+        t = end + 40
+        q = torch.randn(b, n, nq, d, generator=g, device=dev).bfloat16()
+        kc, vc = (torch.randn(b, nk, t, d, generator=g, device=dev).bfloat16() for _ in range(2))
+        before = block_attention.launches
+        got = block_attention(q, kc, vc, end, d ** -0.5)
+        again = block_attention(q, kc, vc, end, d ** -0.5)
+        torch.cuda.synchronize()
+        assert block_attention.launches == before + 2 and torch.equal(got, again)
+        want = block_attention_plain(q.float(), kc.float(), vc.float(), end, d ** -0.5)
+        err = bf16_excess(got, want)
+        worst = max(worst, err)
+        assert err <= 1, f"K9 {(b, nq, nk, n, d, end)}: {err:.3g} of the bf16 limit"
+        print(f"[K9] (B,Hq,Hkv,N,D,end)=({b},{nq},{nk},{n},{d},{end}): {err:.3f} of the bf16 "
+              f"limit, repeat bit-identical")
+        if (b, nq, nk, n, d, end) in BLOCK_ATTN_PATH_SHAPES:
+            tm = in_turns(lambda: block_attention_plain(q, kc, vc, end, d ** -0.5),
+                          lambda: block_attention(q, kc, vc, end, d ** -0.5), iters=50)
+            tm.update(block_attn_bound(b, nq, nk, n, d, end))
+            print(f"[K9 time] bf16 (B,Hq,Hkv,N,D,end)=({b},{nq},{nk},{n},{d},{end}): kernel "
+                  f"{tm['ms']:.4f} ms, plain (SDPA, grouped) {tm['plain_ms']:.4f} ms, bound "
+                  f"{tm['bound_ms']:.4f} ms ({tm['bound_by']}), "
+                  f"{100 * tm['bound_ms'] / tm['ms']:.1f}% of it")
+            rows.append({**tm, "shape": [b, nq, nk, n, d, end]})
+        del q, kc, vc, got, again, want
+    return {"name": "block_attention", "route": "cuda", "variant": "gqa_block",
+            "source": "open_genie_tpu_torch/csrc/block_attention.cu", "replaces": None,
+            "library_ms": None, "max_abs_err": worst, **rows[0], "by_shape": rows}
+
+
+def phase_sdar_small(dev) -> dict:
+    """Phase 4d: the SDAR block step at the compact width
+    (`sdar_compact_config()`, bf16) on the card against the plain f32
+    reference (`tests/sdar_reference.py`) on the same weights: a prompt
+    prefilled in one chunk, then refinement passes and a commit of two
+    blocks through the caches, each pass's logits against the reference's
+    full forward (the median token's relative error within 3%: bf16
+    through 2 layers reads 1.2% on the CPU; the share beyond 10%, where a
+    near-tied router's choice went the other way, printed); K8 twice a layer pass; SDPA's kernels named
+    from one profiled pass; then `BlockSession` steps, ids in range."""
+    from open_genie_tpu_torch.models.configs import sdar_compact_config
+    from open_genie_tpu_torch.models.dynamics import DynamicsModel
+    from open_genie_tpu_torch.ops.kernels.moe_experts import moe_experts
+    from open_genie_tpu_torch.serve import BlockSession
+
+    spec = importlib.util.spec_from_file_location("sdar_reference",
+                                                  HERE / "tests" / "sdar_reference.py")
+    sref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sref)
+    cfg = sdar_compact_config()
+    dyn_cfg, blk = cfg["dynamics"], cfg["block_length"]
+    n_layers = dyn_cfg["desc"][0][1]["n_rep"]
+    g = torch.Generator().manual_seed(SEED + 44)
+    dyn = DynamicsModel(**dyn_cfg)
+    with torch.no_grad():
+        for name, p in dyn.named_parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * p.shape[-1] ** -0.5
+                    if not name.endswith("norm.weight") else 1 + 0.1 * torch.randn(p.shape,
+                                                                                   generator=g))
+    dyn = dyn.to(dev, torch.bfloat16).eval()
+    sd = {k: v.float() for k, v in dyn.state_dict().items()}
+    b, t0 = 4, 3
+    prompt = torch.randint(0, dyn_cfg["mask_id"], (b, t0 * blk), generator=g).to(dev)
+    before = moe_experts.launches
+    k9_before = _counters()["block_attention"].launches
+    cache = dyn.init_cache(b, 1, blk, t0 + 2)
+    dyn.prefill(prompt.view(b, t0, 1, blk), None, cache, 0)
+    seq, errs, passes = prompt, [], 1
+    for pos in range(t0, t0 + 2):
+        final = torch.randint(0, dyn_cfg["mask_id"], (b, blk), generator=g).to(dev)
+        for masked in (blk, 2, 0):
+            inp = final.clone()
+            inp[:, :masked] = dyn_cfg["mask_id"]
+            logits, _ = dyn.decode_frame(inp.view(b, 1, blk), None, cache, pos,
+                                         commit=masked == 0)
+            passes += 1
+            with sref.no_tf32(), torch.no_grad():
+                want = sref.forward(dyn_cfg, sd.__getitem__, torch.cat([seq, inp], 1), blk)
+            want = want[:, -blk:]
+            got = logits.reshape(b, blk, -1).float()
+            errs.append(((got - want).square().mean(-1).sqrt()
+                         / want.square().mean(-1).sqrt()).flatten())
+        seq = torch.cat([seq, final], 1)
+    torch.cuda.synchronize()
+    err = torch.cat(errs)
+    launches = moe_experts.launches - before
+    k9 = _counters()["block_attention"].launches - k9_before
+    print(f"[sdar small] logits against the f32 reference: median relative error "
+          f"{err.median().item():.4f}, max {err.max().item():.4f}, "
+          f"{100 * (err > 0.1).float().mean().item():.1f}% of tokens beyond 0.1; K8 launches "
+          f"{launches} over {passes} passes of {n_layers} layers, K9 {k9}")
+    assert err.median().item() < 0.03, err
+    assert launches == 2 * n_layers * passes and k9 == n_layers * (passes - 1), (launches, k9)
+    # A whole block step (4 refinements, K7, the commit) with the host never
+    # waiting on the device: any synchronizing call raises here.
+    from open_genie_tpu_torch.models.dynamics import get_schedule
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 46)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        dyn.refine_frame(cache, t0 + 1, None, get_schedule(4, (1, blk)), 1.0, (b, 1, blk),
+                         torch.long, dev, generator=gen, decode=dyn.decode_frame)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print("[sdar small] a block step ran with no host sync (sync debug mode 'error')")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        dyn.decode_frame(final.view(b, 1, blk), None, cache, t0 + 1, commit=False)
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if "flash" in e.key.lower() or "attention" in e.key.lower()
+                    or "moe" in e.key})
+    print(f"[sdar small] attention and expert kernels of one pass: {names}")
+    sess = BlockSession(dyn, max_blocks=2, block_length=blk, prefill_chunk=8, device=dev)
+    sess.reset(prompt, seed=SEED + 45)
+    ids = torch.stack([sess.step() for _ in range(2)])
+    assert int(ids.min()) >= 0 and int(ids.max()) < dyn_cfg["tok_vocab"]
+    print(f"[sdar small] BlockSession: 2 blocks of {b} rows, ids {ids[:, 0].tolist()}")
+    return {"median_rel_err": err.median().item(), "max_rel_err": err.max().item(),
+            "kernels": names}
+
+
 def phase_flash_bwd(dev) -> tuple:
     """K3 and K4 against the plain backward on the same inputs and the
     same saved forward: f32 at every attention shape of the training step,
@@ -1660,12 +1938,15 @@ def _counters() -> dict:
     from open_genie_tpu_torch.ops.kernels.lfq_entropy import lfq_avg_probs, lfq_entropy_grad
     from open_genie_tpu_torch.ops.kernels.lfq_head import lfq_head
     from open_genie_tpu_torch.ops.kernels.maskgit_sample import maskgit_sample
+    from open_genie_tpu_torch.ops.kernels.block_attention import block_attention
+    from open_genie_tpu_torch.ops.kernels.moe_experts import moe_experts
 
     return {"flash_attention_fwd": flash_attention, "lfq_head": lfq_head,
             "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
             "flash_attention_bwd_dq": flash_attention_bwd_dq,
             "lfq_entropy_fwd": lfq_avg_probs, "lfq_entropy_bwd": lfq_entropy_grad,
-            "maskgit_sample": maskgit_sample}
+            "maskgit_sample": maskgit_sample, "moe_experts": moe_experts,
+            "block_attention": block_attention}
 
 
 # K7's launches by (B, HW, V) over the whole run, gathered at each
@@ -1815,7 +2096,7 @@ def phase_train_full_width(dev) -> dict:
               "flash_attention_bwd_dkv": n_la + n_dyn,
               "flash_attention_bwd_dq": n_la + n_dyn, "lfq_head": 1,
               "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0,  # codebooks of <= 4096 codes
-              "maskgit_sample": 0}
+              "maskgit_sample": 0, "moe_experts": 0, "block_attention": 0}
     print(f"[train] {sum(p.numel() for p in module.parameters()) / 1e6:.1f}M parameters, "
           f"{sum(p.numel() for p in opt.params) / 1e6:.1f}M trainable; attentions: "
           f"tokenizer encoder {n_tok}, latent action {n_la}, dynamics {n_dyn}")
@@ -1943,7 +2224,8 @@ def phase_tokenizer_train_full_width(dev, cfg=None, label="tokenizer train",
     n_lfq = sum(isinstance(m, LookupFreeQuantization) for m in module.modules())
     expect = {"flash_attention_fwd": 3 * n_attn, "flash_attention_bwd_dkv": 3 * n_attn,
               "flash_attention_bwd_dq": 3 * n_attn, "lfq_head": 0,
-              "lfq_entropy_fwd": n_lfq, "lfq_entropy_bwd": n_lfq, "maskgit_sample": 0}
+              "lfq_entropy_fwd": n_lfq, "lfq_entropy_bwd": n_lfq, "maskgit_sample": 0,
+              "moe_experts": 0, "block_attention": 0}
     print(f"[{label}] {sum(p.numel() for p in module.parameters()) / 1e6:.1f}M "
           f"parameters, {sum(p.numel() for p in opt.params) / 1e6:.1f}M trainable; "
           f"discriminator attentions {n_attn}, LFQ codebooks {n_lfq}")
@@ -2352,7 +2634,7 @@ def phase_stage1(dev, smi: str) -> dict:
     expect = {"flash_attention_fwd": 2 * n_tok + 3 * n_disc,
               "flash_attention_bwd_dkv": n_tok + 3 * n_disc,
               "flash_attention_bwd_dq": n_tok + 3 * n_disc, "lfq_head": 0,
-              "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0, "maskgit_sample": 0}
+              "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0, "maskgit_sample": 0, "moe_experts": 0, "block_attention": 0}
     print(f"[stage1] {sum(p.numel() for p in module.parameters()) / 1e6:.1f}M parameters, "
           f"{sum(p.numel() for p in opt.params) / 1e6:.1f}M trainable; attentions: tokenizer "
           f"{n_tok}, discriminator {n_disc}")
@@ -2376,7 +2658,7 @@ def phase_stage1(dev, smi: str) -> dict:
         "stage1 eval", "stage1_eval", lambda: evaluate_tokenizer(tok16, loader),
         {"flash_attention_fwd": 2 * n_tok, "flash_attention_bwd_dkv": 0,
          "flash_attention_bwd_dq": 0, "lfq_head": 0, "lfq_entropy_fwd": 0,
-         "lfq_entropy_bwd": 0, "maskgit_sample": 0}, smi)
+         "lfq_entropy_bwd": 0, "maskgit_sample": 0, "moe_experts": 0, "block_attention": 0}, smi)
     print(f"[stage1 eval] {smi}: PSNR {scores['psnr']:.3f} dB, SSIM {scores['ssim']:.4f}, "
           f"usage {scores['usage']:.4f} ({scores['distinct_codes']:.0f} of 1024 codes), "
           f"perplexity {scores['perplexity']:.1f}, over {scores['num_batches']} batches")
@@ -2523,7 +2805,7 @@ def phase_rollout_full(dev, smi: str) -> dict:
         "rollout full", "rollout_full", run,
         {"flash_attention_fwd": n_tok + frames * spf * n_dyn, "flash_attention_bwd_dkv": 0,
          "flash_attention_bwd_dq": 0, "lfq_head": 1, "lfq_entropy_fwd": 0,
-         "lfq_entropy_bwd": 0, "maskgit_sample": 2 * frames * spf}, smi)
+         "lfq_entropy_bwd": 0, "maskgit_sample": 2 * frames * spf, "moe_experts": 0, "block_attention": 0}, smi)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cached = genie.rollout_tokens(tokens, actions, frames, spf, generator=noise())
@@ -2753,7 +3035,8 @@ def assert_tokenize_launches(counts: dict, k2: dict, n_clips: int, per_clip: int
     assert k2 == {(4096, 64, 10): n_clips}, f"K2 launched at {k2}"
     assert counts == {"flash_attention_fwd": n_clips * per_clip, "lfq_head": n_clips,
                       "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
-                      "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0, "maskgit_sample": 0}, counts
+                      "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0, "maskgit_sample": 0,
+                      "moe_experts": 0, "block_attention": 0}, counts
 
 
 def anneal_scales(steps: int, start: int, ramp: int, floor: float) -> list:
@@ -2824,7 +3107,7 @@ def phase_trainer_tokenizer(dev, smi: str, bare_ms: float, work: Path) -> dict:
     expect = {"flash_attention_fwd": 2 * n_tok + 3 * n_disc,
               "flash_attention_bwd_dkv": n_tok + 3 * n_disc,
               "flash_attention_bwd_dq": n_tok + 3 * n_disc, "lfq_head": 0,
-              "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0, "maskgit_sample": 0}
+              "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0, "maskgit_sample": 0, "moe_experts": 0, "block_attention": 0}
     torch.cuda.reset_peak_memory_stats()
     with TrainerWatch() as watch:
         watch.new_run()
@@ -2915,7 +3198,7 @@ def phase_trainer_dynamics(dev, smi: str, work: Path) -> dict:
         n_dyn = _attn_count(DynamicsTrainModule(**dynamics_yaml_config()))
     expect = {"flash_attention_fwd": n_dyn, "flash_attention_bwd_dkv": n_dyn,
               "flash_attention_bwd_dq": n_dyn, "lfq_head": 0, "lfq_entropy_fwd": 0,
-              "lfq_entropy_bwd": 0, "maskgit_sample": 0}
+              "lfq_entropy_bwd": 0, "maskgit_sample": 0, "moe_experts": 0, "block_attention": 0}
     torch.cuda.reset_peak_memory_stats()
     with _Tf32Off(), TrainerWatch() as watch:
         for name in ("whole", "resumed"):
@@ -3037,7 +3320,7 @@ def phase_trainer_r05b(dev, smi: str, work: Path, name: str = "r05b_tokenizer.ya
             assert_trainer_launches(f"trainer {label}", "r05b_train", watch.steps, {
                 "flash_attention_fwd": 0, "flash_attention_bwd_dkv": 0,
                 "flash_attention_bwd_dq": 0, "lfq_head": 0, "lfq_entropy_fwd": 0,
-                "lfq_entropy_bwd": 0, "maskgit_sample": 0})
+                "lfq_entropy_bwd": 0, "maskgit_sample": 0, "moe_experts": 0, "block_attention": 0})
     finally:
         TokenizerTrainModule.forward, AdamW.step = forward, opt_step
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3487,7 +3770,7 @@ def phase_gvid(dev, smi: str, work: Path) -> dict:
     expect = {"flash_attention_fwd": 2 * n_tok + 3 * n_disc,
               "flash_attention_bwd_dkv": n_tok + 3 * n_disc,
               "flash_attention_bwd_dq": n_tok + 3 * n_disc, "lfq_head": 0,
-              "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0, "maskgit_sample": 0}
+              "lfq_entropy_fwd": 0, "lfq_entropy_bwd": 0, "maskgit_sample": 0, "moe_experts": 0, "block_attention": 0}
     seen, forward = [], TokenizerTrainModule.forward
 
     @functools.wraps(forward)
@@ -5032,6 +5315,9 @@ def main() -> int:
     k1 = phase_flash(dev)
     k2 = phase_lfq(dev)
     k7 = phase_maskgit(dev)
+    k8 = phase_moe_experts(dev)
+    k9 = phase_block_attention(dev)
+    sdar = phase_sdar_small(dev)
     phase_compact_parity(dev)
     rollout = phase_full_width(dev)
     k1_times, k3, k4 = phase_flash_bwd(dev)
@@ -5165,7 +5451,9 @@ def main() -> int:
     dp_times = {path: {k: v for k, v in out.items() if k not in ("launches", "split_launches")}
                 for path, out in dp.items()}
     tp_times = {k: v for k, v in tp.items() if k not in ("launches", "shapes")}
-    print(json.dumps({"kernels": kernels, "serve": serve["times"], "stages": stages,
+    print(json.dumps({"kernels": kernels, "moe_experts": k8, "block_attention": k9,
+                      "sdar_small": sdar,
+                      "serve": serve["times"], "stages": stages,
                       "trainer": trainer_times, "cli": cli_times, "modules": modules,
                       "dp": dp_times, "tp": tp_times}))
     print(json.dumps({"ok": True, "device": {k: device[k] for k in ("platform", "kind", "count")}}))

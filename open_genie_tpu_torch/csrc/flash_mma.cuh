@@ -1,6 +1,7 @@
-// Building blocks shared by the tensor-core flash-attention kernels (K1 in
+// Building blocks shared by the tensor-core kernels (K1 in
 // flash_attention_mma.cu, K3 in flash_attention_bwd_mma.cu, K4 in
-// flash_attention_bwd_dq_mma.cu): 16-byte cp.async
+// flash_attention_bwd_dq_mma.cu, K8 in moe_experts.cu, K9 in
+// block_attention.cu): 16-byte cp.async
 // copies into padded shared-memory tiles, ldmatrix loads of mma fragments,
 // and the bf16 mma.sync.m16n8k16 product with f32 accumulation.
 //
@@ -177,6 +178,22 @@ template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// `allow_smem` once per kernel and device, so that a later launch asks the
+// driver nothing (K8 and K9 run inside CUDA graphs, captured after a first
+// eager call). A template argument, so that each kernel keeps its own flags.
+template <auto Kernel>
+cudaError_t allow_smem_once(int bytes) {
+  constexpr int kMaxDevices = 64;
+  static bool done[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= 0 && device < kMaxDevices && done[device]) return cudaSuccess;
+  err = allow_smem(Kernel, bytes);
+  if (err == cudaSuccess && device >= 0 && device < kMaxDevices) done[device] = true;
+  return err;
 }
 
 }  // namespace flash_mma

@@ -320,3 +320,58 @@ def dynamics_yaml_config() -> dict:
     tokenizer (`tok_vocab` 1024) with 8-bit latent actions (`act_vocab`
     256)."""
     return {"dynamics": _repo_config("dynamics.yaml", "dynamics").model.dynamics_kwargs()}
+
+
+def sdar_30b_a3b_config() -> dict:
+    """SDAR-30B-A3B-Chat at its published widths
+    (https://huggingface.co/JetLM/SDAR-30B-A3B-Chat/blob/main/config.json):
+    a block-diffusion language model on a Qwen3-MoE body, run as a
+    `DynamicsModel` whose frames are blocks of `block_length` tokens
+    (a 1 x `block_length` grid) refined by MaskGIT. 48 `sdar_block`
+    layers 2048 wide: grouped-query attention of 32 query and 4 key/value
+    heads of 128 with per-head RMSNorm on q and k, RoPE theta 1e6; 128
+    SwiGLU experts of 768, top 8 renormalised, no shared expert; RMSNorm
+    eps 1e-6; a final RMSNorm and an untied, bias-free head over 151,936
+    tokens; no actions. The config gives neither the block length nor the
+    denoising steps a block (4 and 4 here) and the mask token is
+    SDAR's `<|MASK|>`."""
+    return dict(
+        dynamics=dict(
+            desc=(("sdar_block", {
+                "n_rep": 48, "n_embd": 2048, "n_head": 32, "n_kv_head": 4, "d_head": 128,
+                "n_experts": 128, "top_k": 8, "d_expert": 768, "norm_topk_prob": True,
+                "rope_theta": 1000000.0, "eps": 1e-6,
+            }),),
+            tok_vocab=151936,
+            act_vocab=None,
+            embed_dim=2048,
+            mask_id=151669,
+            head_bias=False,
+            final_norm_eps=1e-6,
+        ),
+        block_length=4,
+        denoising_steps=4,
+    )
+
+
+def sdar_compact_config() -> dict:
+    """`sdar_30b_a3b_config()`'s topology at test size: 2 layers 64 wide,
+    GQA of 4 query and 2 key/value heads of 16, 8 experts of 32 at top 2,
+    256 tokens (the last the mask), blocks of 4 tokens."""
+    return dict(
+        dynamics=dict(
+            desc=(("sdar_block", {
+                "n_rep": 2, "n_embd": 64, "n_head": 4, "n_kv_head": 2, "d_head": 16,
+                "n_experts": 8, "top_k": 2, "d_expert": 32, "norm_topk_prob": True,
+                "rope_theta": 1000000.0, "eps": 1e-6,
+            }),),
+            tok_vocab=256,
+            act_vocab=None,
+            embed_dim=64,
+            mask_id=255,
+            head_bias=False,
+            final_norm_eps=1e-6,
+        ),
+        block_length=4,
+        denoising_steps=4,
+    )

@@ -1,7 +1,16 @@
 """MaskGIT DynamicsModel (twin of `open_genie_tpu.models.dynamics`): the
 full forward and its Bernoulli-masked training loss, the KV-cached frame
-decode of the rollout, and `generate`, which appends one frame by MaskGIT
-refinement, through the KV caches where the trunk allows it."""
+decode of the rollout, `refine_frame` (one frame by cached MaskGIT
+refinement, which the Genie's rollout and session and the block session
+of `serve.py` run), a prefill of many frames, and `generate`, which
+appends one frame by MaskGIT refinement, through the KV caches where the
+trunk allows it.
+
+Beyond the JAX package's model: the action embedding is optional (a
+token model, such as SDAR-30B-A3B, has none), masked positions take a
+configured `mask_id`, the head may have no bias and may follow a final
+RMSNorm. Which of these a model has is settled at construction; the
+per-frame decode runs no branch for them."""
 from __future__ import annotations
 
 from math import pi
@@ -12,11 +21,12 @@ import torch
 from torch import nn
 
 from open_genie_tpu_torch.modules import blueprint_out_width, parse_blueprint
-from open_genie_tpu_torch.modules.attention import st_attn_cache
+from open_genie_tpu_torch.modules.norm import RMSNorm
 from open_genie_tpu_torch.ops.kernels.maskgit_sample import gumbel_of_uniform, maskgit_sample
 from open_genie_tpu_torch.parallel import collectives
 from open_genie_tpu_torch.parallel.tensor import vocab_parallel_argmax, vocab_parallel_log_prob
 from open_genie_tpu_torch.utils import module_dtype
+from open_genie_tpu_torch.utils.debug import span
 
 
 def get_schedule(steps: int, shape: Tuple[int, int], which: str = "linear") -> np.ndarray:
@@ -113,20 +123,47 @@ class DynamicsModel(nn.Module):
     block of the width and its lookups are gathered; a split `head` holds
     this rank's block of the vocabulary: `forward` gathers the logits,
     `compute_loss` reduces the log-softmax and the argmax over the blocks
-    instead. The cached decode is not split."""
+    instead. The cached decode is not split.
+
+    `act_vocab` None: no action embedding (`act_id` is ignored and may be
+    None). `mask_id`: the token that fills masked positions in
+    `refine_frame`. `head_bias`: whether the head has a bias.
+    `final_norm_eps`: an RMSNorm of that eps before the head, or none."""
 
     tp_group = None
     tp_parts = frozenset()
 
-    def __init__(self, desc: Any, tok_vocab: int, act_vocab: int, embed_dim: int):
+    def __init__(self, desc: Any, tok_vocab: int, act_vocab: Optional[int], embed_dim: int,
+                 mask_id: int = 0, head_bias: bool = True,
+                 final_norm_eps: Optional[float] = None):
         super().__init__()
         self.desc = desc
         # Layers marked `has_ext` are built and, as in the JAX package, run
         # with no condition: the trunk has none to give them.
         self.layers, _ = parse_blueprint(desc, width=embed_dim)
+        width = blueprint_out_width(desc, embed_dim)
         self.tok_emb = nn.Embedding(tok_vocab, embed_dim)
-        self.act_emb = nn.Embedding(act_vocab, embed_dim)
-        self.head = nn.Linear(blueprint_out_width(desc, embed_dim), tok_vocab)
+        self.act_emb = None if act_vocab is None else nn.Embedding(act_vocab, embed_dim)
+        self.norm = None if final_norm_eps is None else RMSNorm(width, final_norm_eps)
+        self.head = nn.Linear(width, tok_vocab, bias=head_bias)
+        self.mask_id = mask_id
+        # The decode's choices, made here once.
+        self._embed_frame = self._tokens if self.act_emb is None else self._tokens_and_action
+        self._frame_logits = self._head if self.norm is None else self._normed_head
+        self._chunked_prefill = all(getattr(layer, "prefills_chunks", False)
+                                    for layer in self.layers)
+
+    def _tokens(self, tok: torch.Tensor, act_id) -> torch.Tensor:
+        return self.tok_emb(tok)
+
+    def _tokens_and_action(self, tok: torch.Tensor, act_id: torch.Tensor) -> torch.Tensor:
+        return self.tok_emb(tok) + self.act_emb(act_id)[:, None, None, None, :]
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        return self.head(x)
+
+    def _normed_head(self, x: torch.Tensor) -> torch.Tensor:
+        return self.head(self.norm(x))
 
     def _embed(self, name: str, ids: torch.Tensor) -> torch.Tensor:
         out = getattr(self, name)(ids)
@@ -140,9 +177,13 @@ class DynamicsModel(nn.Module):
     def _local_logits(self, tokens: torch.Tensor, act_id: torch.Tensor) -> torch.Tensor:
         """The trunk and this rank's block of the head's logits (all of
         them where the head is not split)."""
-        x = self._embed("tok_emb", tokens) + self._embed("act_emb", act_id)[:, :, None, None, :]
+        x = self._embed("tok_emb", tokens)
+        if self.act_emb is not None:
+            x = x + self._embed("act_emb", act_id)[:, :, None, None, :]
         for layer in self.layers:
             x = layer(x)
+        if self.norm is not None:
+            x = self.norm(x)
         group = self._head_group()
         return self.head(x if group is None else collectives.copy_to_model(x, group))
 
@@ -207,23 +248,26 @@ class DynamicsModel(nn.Module):
 
     def init_cache(self, batch: int, h: int, w: int, t_max: int,
                    dtype: Optional[torch.dtype] = None, device=None) -> List[dict]:
-        """Zeroed per-layer decode caches for a `t_max`-frame rollout
-        (all-`space-time_attn` trunks only). Dtype and device default to
-        the model's."""
+        """Zeroed per-layer decode caches for a `t_max`-frame rollout, each
+        from its layer (`init_cache`). Every layer must keep a cache of one
+        kind (`cache_kind`: per-position temporal buffers of `space-time_attn`,
+        or K/V over the token prefix of `sdar_block`); otherwise raises
+        `ValueError` naming the first layer that does not. Dtype and device
+        default to the model's."""
         if self.tp_parts:
             raise NotImplementedError("the cached decode of a tensor-parallel dynamics model is "
                                       "not split (no TP rollout); gather the weights first")
+        kinds = [getattr(layer, "cache_kind", None) for layer in self.layers]
+        for i, (layer, kind) in enumerate(zip(self.layers, kinds)):
+            if kind is None or kind != kinds[0]:
+                have = "no decode cache" if kind is None else f"a {kind!r} cache"
+                raise ValueError(
+                    f"cached decode: dynamics layer {i} ({type(layer).__name__}) has {have}; "
+                    f"layer 0 ({type(self.layers[0]).__name__}) has a {kinds[0]!r} cache, and "
+                    f"every layer must keep one of the same kind")
         dtype = dtype or module_dtype(self)
         device = device or self.head.weight.device
-        caches = []
-        for desc in self.desc:
-            name, kwargs = (desc, {}) if isinstance(desc, str) else desc
-            assert name == "space-time_attn", (
-                "cached decode requires an all-space-time_attn dynamics trunk"
-            )
-            for _ in range(int(kwargs.get("n_rep", 1))):
-                caches.append(st_attn_cache(kwargs, batch, h, w, t_max, dtype, device))
-        return caches
+        return [layer.init_cache(batch, h, w, t_max, dtype, device) for layer in self.layers]
 
     @torch.inference_mode()
     def decode_frame(self, frame_tok: torch.Tensor, act_id: torch.Tensor,
@@ -236,18 +280,65 @@ class DynamicsModel(nn.Module):
         `commit=False` only reads it (MaskGIT refine steps). Returns
         `(logits (B, H, W, V), cache)`.
         """
-        x = self.tok_emb(frame_tok[:, None]) + self.act_emb(act_id)[:, None, None, None, :]
+        x = self._embed_frame(frame_tok[:, None], act_id)
         for layer, layer_cache in zip(self.layers, cache):
             x, _ = layer(x, cache=layer_cache, cache_pos=pos, cache_write=commit)
-        return self.head(x[:, 0]), cache
+        return self._frame_logits(x[:, 0]), cache
+
+    @torch.inference_mode()
+    def prefill(self, tokens: torch.Tensor, act_id: Optional[torch.Tensor], cache: List[dict],
+                pos: int) -> List[dict]:
+        """Commit the `(B, T, H, W)` frames at positions `pos .. pos + T - 1`
+        (with their `(B, T)` actions, if the model takes any) into `cache`
+        in one pass of the trunk, whose layers must all prefill several
+        frames at once (`prefills_chunks`; other trunks commit a frame at a
+        time through `decode_frame`). Computes no logits."""
+        if not self._chunked_prefill:
+            raise NotImplementedError("this trunk's layers commit one frame at a time "
+                                      "(decode_frame); none prefills several at once")
+        x = self.tok_emb(tokens)
+        if self.act_emb is not None:
+            x = x + self.act_emb(act_id)[:, :, None, None, :]
+        for layer, layer_cache in zip(self.layers, cache):
+            x, _ = layer(x, cache=layer_cache, cache_pos=pos)
+        return cache
+
+    def refine_frame(self, cache, tgt, act_t, schedule, temp, bhw, dtype, device, top_k=None,
+                     generator=None, gumbel=None, commit=maskgit_commit, decode=None):
+        """One cached MaskGIT frame at position `tgt`: `len(schedule)`
+        read-only refinement passes over the new frame (its masked
+        positions filled with `mask_id`), each followed by a commit of
+        `schedule[s]` tokens sampled from the noise (`gumbel[s]`, or one
+        uniform draw from `generator`), then a commit pass that appends the
+        finished frame to the caches. `bhw` is the frame's `(B, H, W)`,
+        `dtype` and `device` its tokens'. `commit` is the sampler
+        (`maskgit_commit`), `decode` the pass (`decode_frame`, or a caller's
+        replay of it). Returns `(frame, cache)`."""
+        b, h, w = bhw
+        mask = torch.ones(b, h * w, dtype=torch.bool, device=device)
+        code = torch.zeros(b, h * w, dtype=dtype, device=device)
+        for s, num_tokens in enumerate(schedule):
+            with span("dynamics.refine"):
+                frame = code.masked_fill(mask, self.mask_id).view(b, h, w)
+                logits, _ = decode(frame, act_t, cache, tgt, commit=False)
+            with span("maskgit.sample"):
+                mask, code = commit(
+                    logits.reshape(b, h * w, -1), mask, code, int(num_tokens),
+                    temp, top_k=top_k, generator=generator,
+                    gumbel=None if gumbel is None else gumbel[s],
+                )
+        frame = code.view(b, h, w)
+        with span("dynamics.commit"):
+            _, cache = decode(frame, act_t, cache, tgt)
+        return frame, cache
 
     def supports_cached_decode(self) -> bool:
         """Whether `generate` can refine through the KV-cached frame decode:
-        only an all-`space-time_attn` trunk has decode caches; any other
-        trunk re-forwards the whole clip every step, as a split model
-        does."""
-        return not self.tp_parts and all(
-            (d if isinstance(d, str) else d[0]) == "space-time_attn" for d in self.desc)
+        every layer keeps a decode cache, all of one kind (`init_cache`);
+        any other trunk re-forwards the whole clip every step, as a split
+        model does."""
+        kinds = {getattr(layer, "cache_kind", None) for layer in self.layers}
+        return not self.tp_parts and len(kinds) == 1 and None not in kinds
 
     @torch.inference_mode()
     def generate(

@@ -240,28 +240,11 @@ class Genie(nn.Module):
 
     def _refine_frame(self, cache, tgt, act_t, schedule, temp, bhw, dtype,
                       top_k=None, generator=None, gumbel=None):
-        """One cached MaskGIT frame: `len(schedule)` read-only refinement
-        passes over the new frame, then a commit pass that appends the
-        finished frame's K/V and FFN window to the caches."""
-        b, h, w = bhw
-        mask = torch.ones(b, h * w, dtype=torch.bool, device=act_t.device)
-        code = torch.zeros(b, h * w, dtype=dtype, device=act_t.device)
-        for s, num_tokens in enumerate(schedule):
-            with span("dynamics.refine"):
-                frame = code.masked_fill(mask, 0).view(b, h, w)
-                logits, _ = self.dynamics.decode_frame(
-                    frame, act_t, cache, tgt, commit=False
-                )
-            with span("maskgit.sample"):
-                mask, code = maskgit_commit(
-                    logits.reshape(b, h * w, -1), mask, code, int(num_tokens),
-                    temp, top_k=top_k, generator=generator,
-                    gumbel=None if gumbel is None else gumbel[s],
-                )
-        frame = code.view(b, h, w)
-        with span("dynamics.commit"):
-            _, cache = self.dynamics.decode_frame(frame, act_t, cache, tgt)
-        return frame, cache
+        """One cached MaskGIT frame (`DynamicsModel.refine_frame`, sampled
+        by this module's `maskgit_commit`)."""
+        return self.dynamics.refine_frame(cache, tgt, act_t, schedule, temp, bhw, dtype,
+                                          act_t.device, top_k, generator, gumbel,
+                                          maskgit_commit, self.dynamics.decode_frame)
 
     # ------------------------------------------------------------------ #
     # Interactive session (see serve.py)

@@ -17,6 +17,7 @@ from open_genie_tpu_torch.modules.attention import (
     SpatialAttention,
     TemporalAttention,
 )
+from open_genie_tpu_torch.modules.block_diffusion import SdarBlock
 from open_genie_tpu_torch.modules.image import BlurPooling2d, ImageResidualBlock, SpaceDownsample
 from open_genie_tpu_torch.modules.misc import ACTIVATIONS, Activation
 from open_genie_tpu_torch.modules.norm import AdaptiveGroupNorm, GroupNorm
@@ -49,6 +50,7 @@ _REGISTRY: Dict[str, Type[nn.Module]] = {
     "spacetime_upsample": SpaceTimeUpsample,
     "group_norm": GroupNorm,
     "adaptive_group_norm": AdaptiveGroupNorm,
+    "sdar_block": SdarBlock,
     **{name: Activation for name in ACTIVATIONS},
 }
 # Attentions whose input width defaults to the width entering them.

@@ -23,6 +23,7 @@ decode paths are not split.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -30,11 +31,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from open_genie_tpu_torch.modules.misc import ForwardBlock, per_frame_group_norm
+from open_genie_tpu_torch.modules.norm import RMSNorm, rms_norm
 from open_genie_tpu_torch.ops.attention import dot_product_attention
+from open_genie_tpu_torch.ops.kernels.block_attention import block_attention
 from open_genie_tpu_torch.ops.conv import conv3d_cl, time_valid_conv3d
 from open_genie_tpu_torch.ops.rope import apply_rope, rope_frequencies
 from open_genie_tpu_torch.parallel import collectives
 from open_genie_tpu_torch.utils import default
+from open_genie_tpu_torch.utils.debug import span
 
 
 class Attention(nn.Module):
@@ -287,6 +291,8 @@ class SpaceTimeAttention(nn.Module):
     """Factorized ST-transformer block: spatial attention -> causal temporal
     attention -> causal conv3d FFN, each with a (dim-adapting) skip."""
 
+    cache_kind = "frame"
+
     def __init__(
         self,
         n_head: Union[int, Tuple[int, int]] = 8,
@@ -325,11 +331,18 @@ class SpaceTimeAttention(nn.Module):
             time_hid, d_out, hid_dim, block="conv3d", num_groups=n_head[1], use_bias=bias,
             kernel_size=kernel_size, causal_time=True,
         )
+        self._cache_kw = {"n_head": n_head, "d_head": d_head, "kernel_size": kernel_size,
+                          "d_out": d_out}
         skips = (("space_skip", d_inp, space_hid), ("time_skip", space_hid, time_hid),
                  ("ffn_skip", time_hid, d_out))
         for name, c_in, c_out in skips:
             if c_in != c_out:
                 self.add_module(name, nn.Conv3d(c_in, c_out, 1))
+
+    def init_cache(self, batch: int, h: int, w: int, t_max: int, dtype: torch.dtype,
+                   device=None) -> dict:
+        """This block's zeroed decode cache (`st_attn_cache`)."""
+        return st_attn_cache(self._cache_kw, batch, h, w, t_max, dtype, device)
 
     def _skip(self, name: str, x: torch.Tensor) -> torch.Tensor:
         conv = getattr(self, name, None)
@@ -397,3 +410,113 @@ class SpaceTimeAttention(nn.Module):
             cache["fh"].dtype
         )
         return ffn
+
+
+@functools.lru_cache(maxsize=8)
+def _rope_table(theta: float, d_head: int, n: int, dtype: torch.dtype, device: str):
+    """`(cos, sin)` `(n, d_head)` of Qwen's rotary embedding (frequencies
+    `theta ** (-2 i / d)`, the phases repeated over the two halves of a
+    head), computed in f32 and cast to `dtype`, as Qwen3 casts them; `sin`
+    negated over the first half (see `_rotate`)."""
+    inv = 1.0 / theta ** (torch.arange(0, d_head, 2, dtype=torch.float32) / d_head)
+    phase = torch.arange(n, dtype=torch.float32)[:, None] * inv[None, :]
+    sin = torch.sin(phase)
+    cos, sin = torch.cos(phase).repeat(1, 2), torch.cat([-sin, sin], dim=-1)
+    return cos.to(device=device, dtype=dtype), sin.to(device=device, dtype=dtype)
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Qwen's rotation of `(..., N, D)` by `(N, D)` tables: the two halves
+    of each head turn as a pair, `x * cos + (-x2, x1) * sin`, with the
+    sign already in `_rope_table`'s sin: `(-x2, x1) * sin = roll(x) *
+    (-sin, sin)`."""
+    return torch.addcmul(x * cos, torch.roll(x, x.shape[-1] // 2, -1), sin)
+
+
+def block_attn_cache(n_kv_head: int, d_head: int, batch: int, tokens: int,
+                     dtype: torch.dtype, device=None) -> dict:
+    """Zeroed `{k, v}` cache of ONE block-causal attention: `(B, n_kv_head,
+    tokens, d_head)` each, over the whole token prefix."""
+    z = lambda: torch.zeros(batch, n_kv_head, tokens, d_head, dtype=dtype,  # noqa: E731
+                            device=device)
+    return {"k": z(), "v": z()}
+
+
+def block_causal_mask(n_q: int, q_start: int, n_k: int, block: int, device) -> torch.Tensor:
+    """`(n_q, n_k)` bool, True = attend: query token `q_start + i` sees key
+    token `j` iff `j // block <= (q_start + i) // block`."""
+    qb = (torch.arange(n_q, device=device) + q_start) // block
+    kb = torch.arange(n_k, device=device) // block
+    return kb[None, :] <= qb[:, None]
+
+
+class BlockCausalAttention(nn.Module):
+    """Grouped-query attention over `(B, N, C)` tokens in blocks of `block`
+    (given per call): bidirectional inside a block, and a block sees every
+    earlier one. As in Qwen3 (SDAR-30B-A3B's body): `q = RMSNorm(W_q x)`
+    and `k = RMSNorm(W_k x)` per head, `v = W_v x`, RoPE on q and k at the
+    tokens' absolute positions, each of `n_kv_head` key/value heads serving
+    `n_head / n_kv_head` query heads, scale `d_head ** -0.5`, no bias. The
+    input is not normed here (the block that holds it norms it). The
+    port's own: the JAX package has no grouped-query attention.
+
+    With a cache (`block_attn_cache`), the tokens at positions `[pos, pos
+    + N)` write their K/V into the cache's slots there and attend over its
+    `[0, pos + N)` in bf16 where the model is: one aligned block (a
+    refinement or a commit of block diffusion) attends to all of it with
+    no mask, through kernel K9 (`ops/kernels/block_attention.py`), which
+    reads each cached key and value once and copies nothing; a chunk of
+    several blocks (a prefill), and the full forward without a cache, take
+    SDPA with the block-causal mask, keys and values repeated over the
+    query heads."""
+
+    def __init__(self, d_model: int, n_head: int, n_kv_head: int, d_head: int,
+                 rope_theta: float = 1e6, eps: float = 1e-6):
+        super().__init__()
+        if n_head % n_kv_head:
+            raise ValueError(f"BlockCausalAttention: {n_head} query heads over {n_kv_head} "
+                             f"key/value heads")
+        self.n_head, self.n_kv_head, self.d_head = n_head, n_kv_head, d_head
+        self.rope_theta, self.eps = float(rope_theta), eps
+        self.to_qkv = nn.Linear(d_model, (n_head + 2 * n_kv_head) * d_head, bias=False)
+        self.to_out = nn.Linear(n_head * d_head, d_model, bias=False)
+        self.q_norm = RMSNorm(d_head, eps)
+        self.k_norm = RMSNorm(d_head, eps)
+
+    def _qkv(self, x: torch.Tensor, pos: int):
+        """q `(B, N, n_head, D)`, k and v `(B, N, n_kv_head, D)`."""
+        b, n, _ = x.shape
+        nq, nk = self.n_head, self.n_kv_head
+        qkv = self.to_qkv(x).view(b, n, nq + 2 * nk, self.d_head)
+        # q's and k's heads normed and rotated at once (each by its own scale)
+        scale = torch.cat([self.q_norm.weight.expand(nq, -1), self.k_norm.weight.expand(nk, -1)])
+        qk = rms_norm(qkv[:, :, : nq + nk], None, self.eps) * scale
+        size = max(1024, 1 << (pos + n - 1).bit_length())
+        cos, sin = _rope_table(self.rope_theta, self.d_head, size, x.dtype, str(x.device))
+        qk = _rotate(qk, cos[pos: pos + n, None], sin[pos: pos + n, None])
+        return qk[:, :, :nq], qk[:, :, nq:], qkv[:, :, nq + nk:]
+
+    def forward(self, x: torch.Tensor, block: int, cache: Optional[dict] = None,
+                pos: int = 0) -> torch.Tensor:
+        """`(B, N, C)` tokens at positions `[pos, pos + N)`, `block` tokens
+        a block (`pos` and `N` multiples of it); without a cache, `pos` is
+        0 and the tokens attend among themselves."""
+        b, n, _ = x.shape
+        with span("attn.block"):
+            q, k, v = self._qkv(x, pos)
+            if cache is not None:
+                cache["k"][:, :, pos: pos + n] = k.transpose(1, 2)
+                cache["v"][:, :, pos: pos + n] = v.transpose(1, 2)
+                if n == block:  # one block: every query sees the whole prefix
+                    attn = block_attention(q, cache["k"], cache["v"], pos + n,
+                                           self.d_head ** -0.5)
+                    return self.to_out(attn.reshape(b, n, -1))
+                k, v = cache["k"][:, :, : pos + n], cache["v"][:, :, : pos + n]
+            else:
+                k, v = k.transpose(1, 2), v.transpose(1, 2)
+            rep = self.n_head // self.n_kv_head
+            mask = block_causal_mask(n, pos, k.shape[2], block, x.device)
+            attn = F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1),
+                attn_mask=mask)
+            return self.to_out(attn.transpose(1, 2).reshape(b, n, -1))

@@ -106,3 +106,22 @@ class AdaptiveGroupNorm(nn.Module):
             shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
         heads = [h.reshape(shape).to(norm.dtype) for h in heads]
         return norm * heads[0] + heads[1] if len(heads) == 2 else norm * heads[0]
+
+
+def rms_norm(x: torch.Tensor, weight: Optional[torch.Tensor], eps: float) -> torch.Tensor:
+    """RMSNorm over the last axis, `F.rms_norm` (one kernel on the card):
+    the statistics and the division in f32, then the scale."""
+    return F.rms_norm(x, (x.shape[-1],), weight, eps)
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm over the last axis (`rms_norm`), scale initialised to 1.
+    The port's own: the JAX package has none."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm(x, self.weight, self.eps)

@@ -52,6 +52,12 @@ _SIGNATURES = {
     # mask, code, code dtype, num_tokens, mask_out, code_out, pred, conf, stream
     "maskgit_sample": (_P, _I, _P, _I, _F, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P, _P,
                        _P, _P),
+    # x, w_gate_up, w_down, order, offsets, weights, h, out, slots, experts, c, i, top_k,
+    # block_m, stream
+    "moe_experts": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # q, q stride (b), q stride (n), k, v, o, b, n, n_head, n_kv_head, t_max, end, d, scale,
+    # stream
+    "block_attention": (_P, _L, _L, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 

@@ -1,5 +1,6 @@
 """Interactive serving: a stateful action -> frame session over a Genie
-(twin of `open_genie_tpu.serve`).
+(twin of `open_genie_tpu.serve`), and `BlockSession`, block-diffusion
+text generation over a token dynamics model (the port's own).
 
     sess = InteractiveSession(genie, max_frames=64)      # device="cuda"
     first = sess.reset(prompt_video, seed=0)             # prompt's pixels
@@ -28,8 +29,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from open_genie_tpu_torch.models.dynamics import get_schedule
 from open_genie_tpu_torch.models.genie import Genie
-from open_genie_tpu_torch.utils.debug import span
+from open_genie_tpu_torch.modules.moe import SparseMoE
+from open_genie_tpu_torch.utils.debug import count, span
 
 # Re-seeding at a rebase: the n-th rebase of a session of seed s draws from
 # a generator seeded s + n * _REBASE_SEED_STRIDE.
@@ -190,3 +193,137 @@ class InteractiveSession:
     def tokens(self) -> torch.Tensor:
         """The live token buffer so far `(B, t, H', W')`, on the host."""
         return self._buf[:, : self._t].cpu()
+
+
+class BlockSession:
+    """Block-diffusion text generation over a token `DynamicsModel` (one
+    with no actions, such as `models/configs.py::sdar_30b_a3b_config()`),
+    every row in lockstep.
+
+        sess = BlockSession(dynamics, max_blocks=64, block_length=4)   # device="cuda"
+        sess.reset(prompt_ids, seed=0)       # (B, L) ids, L a multiple of block_length
+        ids = sess.step()                    # (B, block_length) on the host
+
+    * `reset` allocates the layers' caches for the prompt and `max_blocks`
+      blocks (kept for the next reset of the same shape) and prefills the
+      prompt in chunks of at least `prefill_chunk` tokens
+      (`DynamicsModel.prefill`), inside a `session.prefill` span.
+    * `step` generates the next block of every row: it starts fully masked
+      (`mask_id`) and takes `steps_per_block` read-only refinements, each
+      committing the most confident positions' Gumbel-argmax tokens (at
+      `temp`, on the linear schedule), then a commit pass that writes the
+      block to the caches (`DynamicsModel.refine_frame`); the ids come
+      back to the host.
+    * On the card each block position's pass is a CUDA graph, captured at
+      the first reset of a cache shape (a pass is the same ops at every
+      position but for where it reads and writes, and the same for a
+      refinement and a commit, which both write the block's K/V), so a
+      step launches 5 graphs and the sampler's few kernels, traced or not
+      (the layers' spans open only in eager passes: the prefill, and every
+      pass off the card). After a replay the expert layers' `load`
+      buffers, which the graph writes, are counted as `moe_expert_load`.
+    * `watch`, if set, is called as `watch(ids, logits)` after every pass
+      of `step`: the pass's `(B, 1, block_length)` input ids and its
+      logits (valid until the next pass).
+    * Noise: one `torch.Generator` on the session's device, seeded at
+      reset, one float32 uniform draw a refinement.
+    """
+
+    def __init__(self, dynamics, max_blocks: int, block_length: int = 4,
+                 steps_per_block: int = 4, temp: float = 1.0, prefill_chunk: int = 256,
+                 device="cuda") -> None:
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "BlockSession: CUDA is not available; pass device='cpu' to run on the CPU")
+        if dynamics.act_emb is not None:
+            raise ValueError("BlockSession drives a model without actions")
+        self.dynamics = dynamics.to(self.device).eval()
+        self._loads = [m.load for m in self.dynamics.modules() if isinstance(m, SparseMoE)]
+        self.max_blocks, self.block_length = max_blocks, block_length
+        self.temp = temp
+        self.schedule = get_schedule(steps_per_block, (1, block_length))
+        self.prefill_frames = -(-prefill_chunk // block_length)
+        self.watch = None
+        self._cache = self._gen = None
+        self._graphs, self._ids_in, self._logits = {}, None, None
+        self._b = self._t = self._t_end = 0
+
+    @torch.inference_mode()
+    def reset(self, prompt_ids, seed: int = 0) -> None:
+        """Start every row from its `(B, L)` prompt ids."""
+        ids = _as_tensor(prompt_ids, self.device, torch.long)
+        b, n = ids.shape
+        if n % self.block_length or n == 0:
+            raise ValueError(f"prompt of {n} tokens: not a positive multiple of the block "
+                             f"length {self.block_length}")
+        t0 = n // self.block_length
+        frames = ids.view(b, t0, 1, self.block_length)
+        with span("session.prefill"):
+            if (b, t0) != (self._b, self._t_end - self.max_blocks):
+                self._cache, self._graphs = None, {}  # the old go before the new are made
+                self._cache = self.dynamics.init_cache(b, 1, self.block_length,
+                                                       t0 + self.max_blocks, device=self.device)
+            for p in range(0, t0, self.prefill_frames):
+                self.dynamics.prefill(frames[:, p: p + self.prefill_frames], None, self._cache, p)
+        self._b, self._t, self._t_end = b, t0, t0 + self.max_blocks
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        if self.device.type == "cuda" and not self._graphs:
+            self._capture()
+
+    def _capture(self) -> None:
+        """A CUDA graph of the pass at every block position, sharing one
+        memory pool, its input ids and its logits in fixed buffers. A first
+        eager pass (on a side stream) builds what the kernels need; its
+        K/V land in the first generated block's slots, which that block's
+        own passes write again before they read them."""
+        b, blk = self._b, self.block_length
+        self._ids_in = torch.full((b, 1, blk), self.dynamics.mask_id, dtype=torch.long,
+                                  device=self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            warm, _ = self.dynamics.decode_frame(self._ids_in, None, self._cache, self._t)
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        self._logits = torch.empty_like(warm)
+        del warm
+        pool = torch.cuda.graph_pool_handle()
+        for pos in range(self._t, self._t_end):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool):
+                logits, _ = self.dynamics.decode_frame(self._ids_in, None, self._cache, pos)
+                self._logits.copy_(logits)
+            self._graphs[pos] = graph
+
+    def _decode(self, ids, act_id, cache, pos, commit=True):
+        """One pass at block position `pos` (`DynamicsModel.decode_frame`'s
+        signature): its graph's replay, or the eager pass where there is no
+        graph (off the card)."""
+        graph = self._graphs.get(pos)
+        if graph is None:
+            logits, _ = self.dynamics.decode_frame(ids, act_id, cache, pos, commit)
+        else:
+            self._ids_in.copy_(ids)
+            graph.replay()
+            logits = self._logits
+            if self._loads:
+                count("moe_expert_load", self._loads)
+        if self.watch is not None:
+            self.watch(ids, logits)
+        return logits, cache
+
+    @torch.inference_mode()
+    def step(self) -> torch.Tensor:
+        """Generate the next block of every row: `(B, block_length)` ids on
+        the host."""
+        if self._cache is None or self._t >= self._t_end:
+            raise RuntimeError("BlockSession: call reset() first, and again after max_blocks "
+                               "steps")
+        b = self._b
+        with span("session.step"):
+            frame, _ = self.dynamics.refine_frame(
+                self._cache, self._t, None, self.schedule, self.temp, (b, 1, self.block_length),
+                torch.long, self.device, generator=self._gen, decode=self._decode)
+            self._t += 1
+            with span("session.to_host"):
+                return frame.view(b, self.block_length).cpu()

@@ -10,6 +10,9 @@
     block on the current CUDA stream with an event pair and appends it to
     a bounded in-memory record; `span_record` reads that record. With no
     profiler recording it is a shared no-op after one check.
+  * `count`: a copy of a named device tensor kept in a bounded record,
+    beside the span open around it, only while a profiler records (so it
+    never waits on the device); `counter_record` reads it.
   * `enable_nan_debug`: autograd's anomaly mode, which raises at the first
     backward op that produces a NaN (the counterpart of `jax_debug_nans`).
 """
@@ -102,6 +105,30 @@ def span_record(last: Optional[int] = None) -> List[dict]:
              "device_ms": None if e["start"] is None or e["end"] is None
              else e["start"].elapsed_time(e["end"])}
             for e in entries]
+
+
+# Counters: every entry is a dict of `name`, `step` (the id of the root span
+# open when it was counted, None outside any) and `value`, a copy of the
+# counted tensor left where it was made until `counter_record` reads it.
+_COUNTS: collections.deque = collections.deque(maxlen=8192)
+
+
+def count(name: str, value) -> None:
+    """Keep a copy of `value` (a tensor, or a list of tensors of one shape,
+    kept stacked) under `name`, only while a `torch.profiler` records; the
+    copy is queued on the device, so the host never waits for it."""
+    if _profiler_enabled():
+        value = torch.stack(value) if isinstance(value, (list, tuple)) else value.clone()
+        _COUNTS.append({"name": name, "step": _OPEN[0]["step"] if _OPEN else None,
+                        "value": value})
+
+
+def counter_record(name: str, steps=None) -> List[dict]:
+    """The values counted under `name`, oldest first, as dicts of `step`
+    and `value` (a list on the host; waits for the device), of the root
+    spans whose ids are in `steps` (all with None)."""
+    return [{"step": e["step"], "value": e["value"].tolist()} for e in list(_COUNTS)
+            if e["name"] == name and (steps is None or e["step"] in steps)]
 
 
 def enable_nan_debug(enable: bool = True) -> None:

@@ -294,3 +294,121 @@ def test_session_replays_rollout_on_the_card(cuda):
     want = genie.rollout_tokens(genie.tokenize_prompt(prompt.to(cuda)), acts.to(cuda), n,
                                 steps, generator=torch.Generator(device=cuda).manual_seed(5))
     assert torch.equal(sess.tokens.cpu(), want.cpu())
+
+
+@pytest.mark.parametrize("t,e,k,c,i", chip_smoke.MOE_CASES)
+def test_moe_experts_kernel(cuda, t, e, k, c, i):
+    """K8 against its plain twin (`chip_smoke.MOE_CASES`): within
+    `bf16_excess` of the twin (f32 sums of the same bf16 products in
+    another order; h rounded to bf16 on both sides), two launches a call,
+    two calls bit-identical."""
+    from open_genie_tpu_torch.ops.kernels.moe_experts import moe_experts, moe_experts_plain
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x, wgu, wd, order, offsets, wts, _ = chip_smoke.moe_inputs(g, t, e, k, c, i, cuda,
+                                                               3 if t < 8 else None)
+    before = moe_experts.launches
+    got = moe_experts(x, wgu, wd, order, offsets, wts, k)
+    again = moe_experts(x, wgu, wd, order, offsets, wts, k)
+    torch.cuda.synchronize()
+    assert moe_experts.launches == before + 4 and torch.equal(got, again)
+    assert chip_smoke.bf16_excess(got, moe_experts_plain(x, wgu, wd, order, offsets, wts,
+                                                         k)) <= 1
+
+
+def test_sparse_moe_layer_on_the_card_does_not_sync(cuda):
+    """The layer's routing, dispatch, K8 and combine queue without the host
+    waiting on the device (CUDA's sync debug mode raises on a sync)."""
+    from open_genie_tpu_torch.modules.moe import SparseMoE
+
+    moe = SparseMoE(256, 32, 4, 128).to(cuda, torch.bfloat16)
+    x = torch.randn(64, 256, device=cuda).bfloat16()
+    moe(x)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = moe(x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert y.shape == x.shape and torch.isfinite(y.float()).all()
+
+
+@pytest.mark.parametrize("b,nq,nk,n,d,end", chip_smoke.BLOCK_ATTN_CASES)
+def test_block_attention_kernel(cuda, b, nq, nk, n, d, end):
+    """K9 against its plain twin on the f32 casts of the same bf16 inputs
+    (`chip_smoke.BLOCK_ATTN_CASES`): within `bf16_excess` (the kernel
+    rounds the probabilities to bf16 before the value product), one launch
+    a call, two calls bit-identical; q as a slice of wider heads too."""
+    from open_genie_tpu_torch.ops.kernels.block_attention import (
+        block_attention,
+        block_attention_plain,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    wide = torch.randn(b, n, nq + nk, d, generator=g, device=cuda).bfloat16()
+    q = wide[:, :, :nq]
+    kc, vc = (torch.randn(b, nk, end + 3, d, generator=g, device=cuda).bfloat16()
+              for _ in range(2))
+    before = block_attention.launches
+    got = block_attention(q, kc, vc, end, d ** -0.5)
+    assert torch.equal(got, block_attention(q, kc, vc, end, d ** -0.5))
+    assert block_attention.launches == before + 2
+    want = block_attention_plain(q.float(), kc.float(), vc.float(), end, d ** -0.5)
+    assert chip_smoke.bf16_excess(got, want) <= 1
+
+
+def test_sparse_moe_launches_do_not_grow_with_experts(cuda):
+    """One layer call (routing, dispatch, K8, combine) runs about as many
+    device ops with 8 experts as with 128 or 512: within 2, since torch's
+    sorts take another algorithm at another width (8 experts ran 18, 128
+    ran 19 on an H100), where a loop over the experts would add at least 2
+    a expert."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from open_genie_tpu_torch.modules.moe import SparseMoE
+
+    ops = {}
+    for e in (8, 128, 512):
+        moe = SparseMoE(256, e, 8, 128).to(cuda, torch.bfloat16)
+        x = torch.randn(256, 256, device=cuda).bfloat16()
+        moe(x)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            moe(x)
+            torch.cuda.synchronize()
+        ops[e] = sum(ev.count for ev in prof.key_averages() if ev.device_type.name == "CUDA")
+    assert max(ops.values()) - min(ops.values()) <= 2, ops
+
+
+def test_block_session_replays_its_graphs_while_a_profiler_records(cuda):
+    """A `BlockSession` step runs the same CUDA graphs traced or not: in a
+    profiled step K8 and K9 show in the device trace from the graphs'
+    replays, no layer span opens (the layers run inside the graphs), and
+    the expert-load counter holds each pass's offsets of every layer,
+    copied from the layers' `load` buffers after each replay."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from open_genie_tpu_torch.models.configs import sdar_compact_config
+    from open_genie_tpu_torch.models.dynamics import DynamicsModel
+    from open_genie_tpu_torch.modules.moe import expert_load
+    from open_genie_tpu_torch.serve import BlockSession
+    from open_genie_tpu_torch.utils import debug
+
+    cfg = sdar_compact_config()
+    dyn_cfg, blk = cfg["dynamics"], cfg["block_length"]
+    kw = dyn_cfg["desc"][0][1]
+    torch.manual_seed(11)
+    dyn = DynamicsModel(**dyn_cfg).to(cuda, torch.bfloat16)
+    b = 4
+    sess = BlockSession(dyn, max_blocks=3, block_length=blk, prefill_chunk=8, device=cuda)
+    sess.reset(torch.randint(0, dyn_cfg["mask_id"], (b, 3 * blk), device=cuda), seed=3)
+    sess.step()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sess.step()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    assert sum("moe_gate_up_kernel" in n for n in names) == 5 * kw["n_rep"], names
+    assert sum("block_attention_kernel" in n for n in names) == 5 * kw["n_rep"], names
+    spans = debug.span_record(1)
+    assert [s["name"] for s in spans].count("attn.block") == 0
+    load = expert_load({spans[0]["step"]})
+    assert len(load) == 5 * kw["n_rep"]
+    assert all(r["slots"] == b * blk * kw["top_k"] for r in load), load
